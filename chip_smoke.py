@@ -11,22 +11,34 @@ Phases, one JSON line each on standard output:
              ``trino_tpu_torch/csrc`` with ``nvcc`` for ``sm_90a`` (one
              ``nvcc`` per source, all started together);
 3. kernel  — each kernel against its plain PyTorch version on the card,
-             for every kind x dtype at both shapes q1's path gives it:
-             the aggregation page (262,144 rows) and the final merge of
-             the 24 page partials (8,388,608 rows), each with 4 groups
-             and with ~n/7 groups, plus a ragged n with a dump tail;
-             ints and MIN/MAX must match exactly, float sums the exact
-             sum within SUM_RTOL of the segment's sum of |x|; times the
-             kernel, the plain version and one PyTorch library call;
-4. q1_sf1  — TPC-H q1 at SF1 through ``trino_tpu_torch.LocalQueryRunner``
+             one column at a time for every kind x dtype at both shapes
+             q1's path gives it: the aggregation page (262,144 rows) and
+             the final merge of the 24 page partials (8,388,608 rows),
+             each with 4 groups and with ~n/7 groups, plus a ragged n with
+             a dump tail; ints and MIN/MAX must match exactly, float sums
+             the exact sum within SUM_RTOL of the segment's sum of |x|;
+             times the kernel, the plain version and one PyTorch library
+             call;
+4. columns — the many-column call as q1's hash path makes it: 15 int64
+             SUM states read through the gid sort's permutation, 4 groups
+             interleaved over the rows, at the page and at the merge
+             (exact against the plain version), plus a mixed table (more
+             than 32 columns of four dtype/kind pairs, with and without
+             the permutation) at the page; times the kernel, the plain
+             version, the same work one column at a time (15 gathers and
+             15 one-column calls) and ``index_add_`` over the unsorted
+             gids of the (n, 15) block, and the kernels' own device time
+             (torch.profiler, without the wrapper's host work);
+5. q1_sf1  — TPC-H q1 at SF1 through ``trino_tpu_torch.LocalQueryRunner``
              on the card, held against the oracle answer in
              ``tests/sf1_expected.py``; every kernel launch counter is set
-             to 0 just before the timed run and read just after;
-5. the ``kernels`` line: per kernel its route, source, the TPU kernel it
+             to 0 just before the timed run and read just after, and the
+             kernel must have been called once per aggregated page;
+6. the ``kernels`` line: per kernel its route, source, the TPU kernel it
    replaces, launches on the main path, its error against the plain
    version, its time, the plain version's, the library call's and its
-   memory/compute bound at the main path's shape;
-6. the last line: ``{"ok": true, "device": {...}}``.
+   memory/compute bound at the main path's shape (the page call);
+7. the last line: ``{"ok": true, "device": {...}}``.
 
 Any failed check raises; nothing is caught, so a failed phase ends the
 run with a non-zero exit code before the last line is printed.
@@ -75,6 +87,33 @@ def time_ms(fn, iters: int = 20) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def kernel_device_ms(fn, iters: int = 10) -> dict:
+    """Device time per call of the segment-reduce kernels that ``fn``
+    launches, per kernel (fill, tile, carry) and in total, from
+    torch.profiler: unlike ``time_ms`` it leaves out the wrapper's host
+    work."""
+    import re
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {"fill": 0.0, "tile": 0.0, "carry": 0.0}
+    for e in prof.key_averages():
+        m = re.search(r"\b(fill|tile|carry)_kernel<", e.key)
+        if m and e.device_type != DeviceType.CPU:
+            out[m.group(1)] += e.self_device_time_total / 1e3 / iters
+    out["total"] = sum(out.values())
+    return out
 
 
 def device_phase():
@@ -132,21 +171,19 @@ def _values(rng, n: int, dtype: str):
         .astype(dtype)
 
 
-def _check_case(kind, col, gid, ns, kernels):
-    """Kernel vs plain version on one input; returns the max abs error
-    and the max error relative to the segment's sum of |x|. Ints and
-    MIN/MAX must match exactly; a float SUM must be within
+def _compare(got, kind, col, gid, ns, kernels, what):
+    """``got`` against the plain version of ``col`` over ``gid``; returns
+    the max abs error and the max error relative to the segment's sum of
+    |x|. Ints and MIN/MAX must match exactly; a float SUM must be within
     SUM_RTOL * sum|x| of the exact sum, per segment."""
     import torch
 
-    got = kernels.segment_reduce(col, gid, ns, kind)
     if not col.dtype.is_floating_point or kind != "sum":
         want = kernels.segment_reduce_reference(col, gid, ns, kind)
         torch.cuda.synchronize()
         if not torch.equal(got, want):
             bad = (got != want).nonzero()[:5].flatten().tolist()
-            raise AssertionError(f"segment_reduce {kind} {col.dtype}: "
-                                 f"mismatch at segments {bad}")
+            raise AssertionError(f"{what}: mismatch at segments {bad}")
         return 0.0, 0.0
     want = kernels.segment_reduce_reference(col.double(), gid, ns, "sum")
     mag = kernels.segment_reduce_reference(col.abs().double(), gid, ns,
@@ -155,11 +192,16 @@ def _check_case(kind, col, gid, ns, kernels):
     limit = SUM_RTOL[str(col.dtype).removeprefix("torch.")] * mag
     if bool((err > limit).any()):
         i = int((err - limit).argmax())
-        raise AssertionError(
-            f"segment_reduce sum {col.dtype}: segment {i} error "
-            f"{float(err[i])} over limit {float(limit[i])}")
+        raise AssertionError(f"{what}: segment {i} error {float(err[i])} "
+                             f"over limit {float(limit[i])}")
     rel = err / torch.where(mag > 0, mag, 1.0)
     return float(err.max()), float(rel.max())
+
+
+def _check_case(kind, col, gid, ns, kernels):
+    """The one-column kernel vs its plain version on one input."""
+    return _compare(kernels.segment_reduce(col, gid, ns, kind), kind, col,
+                    gid, ns, kernels, f"segment_reduce {kind} {col.dtype}")
 
 
 def kernel_phase():
@@ -180,7 +222,6 @@ def kernel_phase():
         "ragged": (1000, 1000 // 7, 900),
     }
     timed = ("q1_page", "merge")
-    main = None
     for kind in kernels.SEGMENT_KINDS:
         for dtype in ("int32", "int64", "float32", "float64"):
             timings = {}
@@ -212,19 +253,112 @@ def kernel_phase():
                             col, gid, n + 1, kind)),
                     "library_ms": time_ms(library),
                 }
-                if case == "q1_page" and kind == "sum" and dtype == "int64":
-                    # q1's states at the page: 360 of the main path's 375
-                    # launches have this shape
-                    bytes_ = n * (col.element_size() + gid.element_size()) \
-                        + (n + 1) * col.element_size()
-                    main = dict(timings[case], n=n, bytes=bytes_,
-                                max_abs_err=errors[case])
             emit({"phase": "kernel", "kernel": "segment_reduce",
                   "kind": kind, "dtype": dtype,
                   "shapes": {c: cases[c][0] for c in cases},
                   "sum_rtol": SUM_RTOL.get(dtype) if kind == "sum" else None,
                   "max_abs_err": errors, "max_rel_err": rel_errors,
                   "ms": timings})
+
+
+def _hash_table(rng, n: int, live: int, dtypes, dev):
+    """Columns and gids as q1's hash path hands them to the kernel: gids
+    of 4 groups interleaved over the first ``live`` rows (the rest in the
+    dump segment n), sorted, with the stable sort's permutation; one
+    column per entry of ``dtypes``, each a rotation of one random column
+    of its dtype."""
+    import numpy as np
+    import torch
+
+    raw = rng.integers(0, 4, n).astype(np.int32)
+    raw[live:] = n
+    unsorted = torch.from_numpy(raw).to(dev)
+    order = torch.sort(unsorted, stable=True).indices
+    base = {dt: torch.from_numpy(_values(rng, n, dt)).to(dev)
+            for dt in dict.fromkeys(dtypes)}
+    cols = [base[dt].roll(7919 * i + 1) for i, dt in enumerate(dtypes)]
+    return cols, unsorted, unsorted[order], order
+
+
+def _check_columns(cols, gid, ns, kinds, order, kernels):
+    """The many-column call vs its plain version; returns the max abs
+    error over the columns."""
+    got = kernels.segment_reduce_columns(cols, gid, ns, kinds, order)
+    return max(_compare(out, kind, col if order is None else col[order],
+                        gid, ns, kernels,
+                        f"segment_reduce_columns column {i} {kind} "
+                        f"{col.dtype}")[0]
+               for i, (out, col, kind) in enumerate(zip(got, cols, kinds)))
+
+
+def columns_phase():
+    """segment_reduce_columns as q1's hash path calls it, against its
+    plain version, at the page and at the merge; times it beside the
+    plain version, the one-column-at-a-time path and ``index_add_``."""
+    import numpy as np
+    import torch
+
+    from trino_tpu_torch.ops import kernels
+
+    rng = np.random.default_rng(20261017)
+    dev = torch.device("cuda")
+
+    # mixed table at the page: 34 int64 SUM (two tables of <= 32 columns)
+    # and two each of int32 MIN, float32 MAX, float64 SUM
+    mixed = [("int64", "sum")] * 34 + [("int32", "min"), ("float32", "max"),
+                                       ("float64", "sum")] * 2
+    cols, _, gid, order = _hash_table(rng, PAGE_ROWS, PAGE_LIVE,
+                                      [dt for dt, _ in mixed], dev)
+    kinds = [kind for _, kind in mixed]
+    mixed_err = {
+        "order": _check_columns(cols, gid, PAGE_ROWS + 1, kinds, order,
+                                kernels),
+        "sorted": _check_columns(cols, gid, PAGE_ROWS + 1, kinds, None,
+                                 kernels)}
+    emit({"phase": "columns", "case": "mixed", "n": PAGE_ROWS,
+          "columns": len(mixed), "max_abs_err": mixed_err})
+    del cols
+
+    main = None
+    kinds = ["sum"] * STATES_PER_PAGE
+    for case, (n, live) in {"page": (PAGE_ROWS, PAGE_LIVE),
+                            "merge": (MERGE_ROWS, MERGE_ROWS - 1000)}.items():
+        cols, unsorted, gid, order = _hash_table(
+            rng, n, live, ["int64"] * STATES_PER_PAGE, dev)
+        err = _check_columns(cols, gid, n + 1, kinds, order, kernels)
+        block = torch.stack(cols, dim=1)          # (n, 15) int64
+        out2d = torch.empty((n + 1, STATES_PER_PAGE), dtype=torch.int64,
+                            device=dev)
+        unsorted64 = unsorted.to(torch.int64)
+
+        def one_column_at_a_time():
+            for col in cols:
+                kernels.segment_reduce(col[order], gid, n + 1, "sum")
+
+        timings = {
+            "kernel_ms": time_ms(lambda: kernels.segment_reduce_columns(
+                cols, gid, n + 1, kinds, order)),
+            "plain_ms": time_ms(
+                lambda: kernels.segment_reduce_columns_reference(
+                    cols, gid, n + 1, kinds, order)),
+            "per_column_ms": time_ms(one_column_at_a_time),
+            "library_ms": time_ms(
+                lambda: out2d.index_add_(0, unsorted64, block)),
+            "device_ms": kernel_device_ms(
+                lambda: kernels.segment_reduce_columns(
+                    cols, gid, n + 1, kinds, order)),
+        }
+        # gid and order read once per row, each column read once per row
+        # and written once per segment
+        bytes_ = n * (4 + 8) + n * 8 * STATES_PER_PAGE \
+            + (n + 1) * 8 * STATES_PER_PAGE
+        emit({"phase": "columns", "case": case, "n": n,
+              "columns": STATES_PER_PAGE, "kind": "sum", "dtype": "int64",
+              "order": True, "groups": 4, "max_abs_err": err,
+              "bytes": bytes_, "ms": timings})
+        if case == "page":
+            main = dict(timings, n=n, bytes=bytes_, max_abs_err=err)
+        del cols, block, out2d
     return main
 
 
@@ -302,11 +436,10 @@ def q1_phase(card):
     pages = sum(sum(op.get("grouping_paths", {}).values())
                 for op in res.stats["operators"]
                 if op["name"] == "HashAggregationOperator")
-    if pages == 0 or launches["segment_reduce"] < STATES_PER_PAGE * pages:
+    if pages == 0 or launches["segment_reduce"] != pages:
         raise AssertionError(
             f"segment_reduce launched {launches['segment_reduce']} times "
-            f"for {pages} aggregated pages (want >= {STATES_PER_PAGE} "
-            "per page)")
+            f"for {pages} aggregated pages (want one per page)")
     rows = sum(r[-1] for r in res.rows)       # count(*) over all groups
     emit({"phase": "q1_sf1", "rows_out": len(res.rows),
           "matches_oracle": True, "aggregated_pages": pages,
@@ -332,10 +465,11 @@ def main() -> int:
     sys.path.insert(0, REPO)
     card = device_phase()
     build_phase()
-    main_shape = kernel_phase()
+    kernel_phase()
+    main_shape = columns_phase()
     launches = q1_phase(card)
     bytes_ms = main_shape["bytes"] / HBM_BYTES_PER_S * 1e3
-    ops_ms = main_shape["n"] / VECTOR_OPS_PER_S * 1e3
+    ops_ms = main_shape["n"] * STATES_PER_PAGE / VECTOR_OPS_PER_S * 1e3
     emit({"kernels": [{
         "name": "segment_reduce",
         "route": "cuda",

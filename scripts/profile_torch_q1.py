@@ -15,7 +15,9 @@ and prints JSON lines:
 - ``device``: ``torch.profiler`` over one run — the sum of device-side
   time (kernels and copies), its share of the run's wall (the profiler
   itself slows the host, so the share is a lower bound), the
-  segment-reduce kernels' own time, and the top device events.
+  segment-reduce kernels' own time, its wrapper calls (one per
+  aggregated page) and CUDA launches (three per dtype and kind of the
+  page's state columns), and the top device events.
 
 Every line carries the card's name and power limit.
 """
@@ -44,6 +46,7 @@ def main() -> int:
 
     from trino_tpu_torch import LocalQueryRunner
     from trino_tpu_torch.connectors.tpch import TpchConnector
+    from trino_tpu_torch.ops import kernels as engine_kernels
     from trino_tpu_torch.resources.tpch_queries import TPCH_QUERIES
     from trino_tpu_torch.sql.analyzer import Session
     from trino_tpu_torch.sql.parser import parse_statement
@@ -107,6 +110,7 @@ def main() -> int:
                         for d in plan.drivers for st in d.stats]})
 
     sync()
+    engine_kernels.segment_reduce.launches = 0
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -125,7 +129,8 @@ def main() -> int:
                  reverse=True)[:12]
     emit({"phase": "device", "wall_s": wall, "device_busy_s": busy_s,
           "device_busy_share": busy_s / wall, "card": card,
-          "segment_reduce_launches": sum(e.count for e in ours) // 3,
+          "segment_reduce_calls": engine_kernels.segment_reduce.launches,
+          "segment_reduce_cuda_launches": sum(e.count for e in ours),
           "segment_reduce_device_s": sum(e.self_device_time_total
                                          for e in ours) / 1e6,
           "top": [{"name": e.key[:80], "calls": e.count,

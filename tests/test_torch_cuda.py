@@ -113,15 +113,87 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(dev):
         kernels.segment_reduce(col, gid.cpu(), 1, "sum")
 
 
+#: (dtype, kind) of each column of the mixed table: more than 32 int64 SUM
+#: columns (the kernel launches 32 columns of one dtype and kind at a
+#: time) and two of each other pair
+MIXED = ([(torch.int64, "sum")] * 34 + [(torch.int32, "min"),
+                                        (torch.float32, "max"),
+                                        (torch.float64, "sum")] * 2)
+
+
+def _table(rng, n, groups, with_order, dev):
+    """(cols, gid, order) of a mixed table: with ``order``, the gids are
+    the hash path's (unsorted, ``groups`` groups interleaved, 5% of rows in
+    the dump segment n) sorted, and ``order`` the stable sort's permutation;
+    without, sorted gids as ``_inputs`` makes them."""
+    if with_order:
+        raw = rng.integers(0, groups, n).astype(np.int32)
+        raw[rng.random(n) < 0.05] = n
+        order = torch.sort(torch.from_numpy(raw).to(dev), stable=True).indices
+        gid = torch.from_numpy(raw).to(dev)[order]
+    else:
+        order = None
+        gid = _inputs(rng, n, groups, torch.int32, dev)[1]
+    base = {dt: _inputs(rng, n, 1, dt, dev)[0]
+            for dt in dict.fromkeys(dt for dt, _ in MIXED)}
+    cols = [base[dt].roll(7919 * i + 1) for i, (dt, _) in enumerate(MIXED)]
+    return cols, gid, order
+
+
+@pytest.mark.parametrize("with_order", [False, True])
+@pytest.mark.parametrize("n,groups", [(262_144, 4), (8_388_608, 4),
+                                      (1000, 140)])
+def test_columns_match_plain_version(dev, n, groups, with_order):
+    rng = np.random.default_rng(n + groups + with_order)
+    cols, gid, order = _table(rng, n, groups, with_order, dev)
+    kinds = [kind for _, kind in MIXED]
+    before = kernels.segment_reduce.launches
+    got = kernels.segment_reduce_columns(cols, gid, n + 1, kinds, order)
+    assert kernels.segment_reduce.launches == before + 1
+    for (dtype, kind), col, out in zip(MIXED, cols, got):
+        assert out.dtype == dtype and out.shape == (n + 1,)
+        _assert_matches(out, col if order is None else col[order], gid,
+                        n + 1, kind)
+
+
+def test_repeated_column_float_sums_are_bit_identical(dev):
+    rng = np.random.default_rng(2)
+    cols, gid, order = _table(rng, 262_144, 4, True, dev)
+    floats = [c for c in cols if c.dtype.is_floating_point]
+    kinds = ["sum"] * len(floats)
+    first = kernels.segment_reduce_columns(floats, gid, 262_145, kinds, order)
+    for _ in range(3):
+        again = kernels.segment_reduce_columns(floats, gid, 262_145, kinds,
+                                               order)
+        assert all(torch.equal(a, b) for a, b in zip(again, first))
+
+
+def test_wrapper_rejects_a_bad_order(dev):
+    cols = [torch.ones(16, dtype=torch.int64, device=dev)]
+    gid = torch.zeros(16, dtype=torch.int32, device=dev)
+    order = torch.arange(16, device=dev)
+    with pytest.raises(TypeError):
+        kernels.segment_reduce_columns(cols, gid, 1, ["sum"],
+                                       order.to(torch.int32))
+    with pytest.raises(ValueError):
+        kernels.segment_reduce_columns(cols, gid, 1, ["sum"], order[:15])
+    with pytest.raises(ValueError):
+        kernels.segment_reduce_columns(cols, gid, 1, ["sum"], order.cpu())
+
+
 def test_q1_on_the_card_equals_the_cpu_path(dev):
     def run(device):
         runner = LocalQueryRunner({"tpch": TpchConnector(page_rows=4096)},
                                   Session(catalog="tpch", schema="tiny"),
                                   device=device)
-        return runner.execute(TPCH_QUERIES[1]).rows
+        return runner.execute(TPCH_QUERIES[1])
 
     before = kernels.segment_reduce.launches
     on_card = run(dev)
     launched = kernels.segment_reduce.launches - before
-    assert launched >= 15
-    assert on_card == run("cpu")
+    # one kernel call per aggregated page, every state column in it
+    pages = sum(sum(op.get("grouping_paths", {}).values())
+                for op in on_card.stats["operators"]
+                if op["name"] == "HashAggregationOperator")
+    assert pages > 0 and launched == pages
+    assert on_card.rows == run("cpu").rows

@@ -9,9 +9,10 @@ Grouping runs one of two paths, as in the JAX engine
 (``trino_tpu/ops/aggregation.py``):
 
 - **hash** (default): the vectorized open-addressing table of
-  ``ops/hashtable.py`` assigns each row a dense group id; the states are
-  sorted by gid and each state column is one ``segment_reduce`` (the
-  hand-written CUDA kernel on the card). Float grouping keys and
+  ``ops/hashtable.py`` assigns each row a dense group id; the gids are
+  sorted and one ``segment_reduce_columns`` call reduces every state
+  column through the sort's permutation (the hand-written CUDA kernel on
+  the card). Float grouping keys and
   probe-budget overflow fall back to:
 - **sort** (oracle/fallback): normalize key columns to (null-bit, int64)
   operand pairs, sort the batch lexicographically (stable argsorts from
@@ -40,7 +41,7 @@ from ..block import DevicePage, Dictionary, padded_size, storage_dtype
 from ..types import TypeError_
 from .hashtable import hash_group_ids, hash_segment_reduce, \
     hashable_key_types
-from .kernels import segment_reduce
+from .kernels import segment_reduce_columns
 from .operator import Operator
 from .sortkeys import group_operands, lexsort_indices
 
@@ -347,14 +348,11 @@ def group_reduce(key_ops: Sequence, key_raws: Sequence,
     # invalid lanes -> dump segment
     gid = torch.where(s_valid, gid, cap)
 
-    reduced = [segment_reduce(col, gid, num_segments=cap + 1,
-                              kind=kind)[:cap]
-               for kind, col in zip(kinds, s_states)]
-
-    # group keys: first sorted row of each segment
-    first_idx = segment_reduce(
-        torch.arange(cap, dtype=torch.int32, device=device), gid,
-        num_segments=cap + 1, kind="min")[:cap]
+    # one kernel call: the states, and the first sorted row of each
+    # segment (a MIN over row positions) for the group keys
+    *reduced, first_idx = [r[:cap] for r in segment_reduce_columns(
+        s_states + [torch.arange(cap, dtype=torch.int32, device=device)],
+        gid, cap + 1, list(kinds) + ["min"])]
     ngroups = boundary.sum()
     out_valid = torch.arange(cap, device=device) < ngroups
     safe_idx = torch.where(out_valid, first_idx, 0).to(torch.int64)

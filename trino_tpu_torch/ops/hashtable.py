@@ -37,7 +37,7 @@ from typing import Sequence, Tuple
 import torch
 
 from .. import types as T
-from .kernels import segment_reduce
+from .kernels import segment_reduce_columns
 
 #: linear-probe rounds per page: with load factor <= 0.5 and a 64-bit
 #: mixed hash, an unresolved row after 32 probes is astronomically rare
@@ -168,9 +168,9 @@ def hash_segment_reduce(gid, group_rows, ngroups: int, key_raws: Tuple,
                         key_nulls: Tuple, state_cols: Tuple, kinds: Tuple):
     """Reduce state columns by hash-assigned gid and gather group keys.
 
-    The segment-reduce kernel takes sorted gids, so the states are first
-    gathered in gid order (one stable sort of the int32 gid); then each
-    state column is one ``segment_reduce`` call.
+    The segment-reduce kernel takes sorted gids, so the int32 gid takes
+    one stable sort; then one ``segment_reduce_columns`` call reduces
+    every state column, reading it through the sort's permutation.
 
     Returns (group_key_raws, group_key_nulls, reduced_states, out_valid)
     in the exact shape contract of ``aggregation.group_reduce``.
@@ -178,9 +178,8 @@ def hash_segment_reduce(gid, group_rows, ngroups: int, key_raws: Tuple,
     cap = gid.shape[0]
     order = torch.sort(gid, stable=True).indices
     r_gid = gid[order]
-    reduced = [segment_reduce(col[order], r_gid, num_segments=cap + 1,
-                              kind=kind)[:cap]
-               for kind, col in zip(kinds, state_cols)]
+    reduced = [r[:cap] for r in segment_reduce_columns(
+        state_cols, r_gid, cap + 1, kinds, order=order)]
 
     out_valid = torch.arange(cap, dtype=torch.int32,
                              device=gid.device) < ngroups

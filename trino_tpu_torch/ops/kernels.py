@@ -23,7 +23,7 @@ import os
 import shutil
 import subprocess
 import threading
-from typing import Optional
+from typing import List, Optional, Sequence
 
 import torch
 
@@ -35,6 +35,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 _lib: Optional[ctypes.CDLL] = None
+#: rows per tile of the kernel, read from the library once it is loaded
+_tile_rows = 0
 _build_lock = threading.Lock()
 
 
@@ -79,19 +81,22 @@ def build() -> str:
 
 
 def _library() -> ctypes.CDLL:
-    global _lib
+    global _lib, _tile_rows
     with _build_lock:
         if _lib is None:
             lib = ctypes.CDLL(build())
             vp = ctypes.c_void_p
-            lib.segment_reduce.argtypes = [
-                vp, vp, ctypes.c_longlong, vp, ctypes.c_longlong,
-                ctypes.c_int, ctypes.c_int, vp, vp, vp]
-            lib.segment_reduce.restype = ctypes.c_int
+            lib.segment_reduce_columns.argtypes = [
+                ctypes.POINTER(vp), ctypes.POINTER(vp),
+                ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int),
+                ctypes.c_int, vp, vp, ctypes.c_longlong, ctypes.c_longlong,
+                vp, vp, vp]
+            lib.segment_reduce_columns.restype = ctypes.c_int
             lib.segment_reduce_tile_rows.argtypes = []
             lib.segment_reduce_tile_rows.restype = ctypes.c_int
             lib.segment_reduce_error_string.argtypes = [ctypes.c_int]
             lib.segment_reduce_error_string.restype = ctypes.c_char_p
+            _tile_rows = lib.segment_reduce_tile_rows()
             _lib = lib
         return _lib
 
@@ -100,13 +105,17 @@ def _library() -> ctypes.CDLL:
 # segment reduce
 #
 # Replaces trino_tpu/ops/pallas_kernels.py `segment_reduce` (:226), which
-# launches `_segment_reduce_pallas` (:172) / `_kernel` (:100). Bound on
-# Hopper: memory — every row is read once (value + int32 gid) and every
-# segment written once. At q1's aggregation page (262,144 int64 rows,
-# 262,145 segments) that is ~3.1 MB read + ~2.1 MB written, ~1.6 us at
-# 3.35 TB/s; launch cost dominates at that size. The design (fill, one
-# block per 2,048-row tile with a block-wide segmented scan, one block over
-# the tile-edge carries; no atomics) is described in
+# launches `_segment_reduce_pallas` (:172) / `_kernel` (:100), and the
+# per-column loop around it (trino_tpu/ops/hashtable.py
+# `_hash_segment_reduce_impl`): one call reduces every state column of a
+# page, reading the columns through the gid sort's permutation. Bound on
+# Hopper: memory — the gids and the permutation are read once per row,
+# each column once per row, each column's segments written once. At q1's
+# aggregation page (262,144 rows, 15 int64 SUM states, 262,145 segments)
+# that is 66.06 MB, 0.0197 ms at 3.35 TB/s. The design (fill, one block
+# per 2,048-row tile and column with a block-wide segmented scan, one
+# block per column over the tile-edge carries; no atomics; three launches
+# per (dtype, kind) among the columns) is described in
 # csrc/segment_reduce.cu.
 
 SEGMENT_KINDS = ("sum", "min", "max")
@@ -143,56 +152,130 @@ def segment_reduce_reference(col: torch.Tensor, gid: torch.Tensor,
                                include_self=True)
 
 
-def segment_reduce(col: torch.Tensor, gid: torch.Tensor, num_segments: int,
-                   kind: str) -> torch.Tensor:
-    """SUM, MIN or MAX of ``col`` over segments of SORTED int32 group ids
-    (non-decreasing; the engine's gids step by at most 1, then jump to
-    the dump segment), identity in empty segments, int sums wrapping.
+def segment_reduce_columns_reference(cols: Sequence[torch.Tensor],
+                                     gid: torch.Tensor, num_segments: int,
+                                     kinds: Sequence[str],
+                                     order: Optional[torch.Tensor] = None
+                                     ) -> List[torch.Tensor]:
+    """Plain PyTorch version of ``segment_reduce_columns``: per column,
+    ``segment_reduce_reference`` of the column read through ``order``."""
+    return [segment_reduce_reference(col if order is None else col[order],
+                                     gid, num_segments, kind)
+            for col, kind in zip(cols, kinds)]
 
-    CPU tensors take the plain version. CUDA tensors launch the Hopper
-    kernel; unsorted gids on CUDA give undefined (but in-bounds) results."""
-    if kind not in _KIND_CODE:
-        raise ValueError(f"segment_reduce: unknown kind {kind!r}")
-    if col.device.type == "cpu" and gid.device.type == "cpu":
-        return segment_reduce_reference(col, gid, num_segments, kind)
-    if col.device.type != "cuda" or gid.device != col.device:
+
+def _dtype_codes(cols, gid, order, num_segments) -> List[int]:
+    """The columns' dtype codes; raises on what the kernel does not take.
+    Cheap tensor attributes only: this runs on every call."""
+    d = gid.get_device()
+    if not gid.is_cuda or any(c.get_device() != d for c in cols) or \
+            (order is not None and order.get_device() != d):
         raise ValueError(
-            f"segment_reduce: col on {col.device}, gid on {gid.device}; "
-            "both must be on one CUDA device (or both on the CPU)")
-    if col.dtype not in _DTYPE_CODE:
-        raise TypeError(f"segment_reduce: unsupported dtype {col.dtype}")
+            "segment_reduce: col on "
+            f"{sorted({str(c.device) for c in cols})}, gid on {gid.device}, "
+            f"order on {None if order is None else order.device}; all must "
+            "be on one CUDA device (or all on the CPU)")
     if gid.dtype != torch.int32:
         raise TypeError(f"segment_reduce: gid must be int32, not {gid.dtype}")
-    if col.dim() != 1 or gid.shape != col.shape:
-        raise ValueError(
-            f"segment_reduce: col {tuple(col.shape)} and gid "
-            f"{tuple(gid.shape)} must be 1-D and of one length")
-    if not (col.is_contiguous() and gid.is_contiguous()):
-        raise ValueError("segment_reduce: col and gid must be contiguous")
+    shape = gid.shape
+    if len(shape) != 1 or not gid.is_contiguous():
+        raise ValueError("segment_reduce: gid must be 1-D and contiguous")
+    codes = []
+    for col in cols:
+        code = _DTYPE_CODE.get(col.dtype)
+        if code is None:
+            raise TypeError(f"segment_reduce: unsupported dtype {col.dtype}")
+        if col.shape != shape:
+            raise ValueError(
+                f"segment_reduce: col {tuple(col.shape)} and gid "
+                f"{tuple(shape)} must be 1-D and of one length")
+        if not col.is_contiguous():
+            raise ValueError("segment_reduce: col must be contiguous")
+        codes.append(code)
+    if order is not None:
+        if order.dtype != torch.int64:
+            raise TypeError(
+                f"segment_reduce: order must be int64, not {order.dtype}")
+        if order.shape != shape or not order.is_contiguous():
+            raise ValueError(
+                f"segment_reduce: order {tuple(order.shape)} must be 1-D, "
+                f"contiguous and of gid's length {shape[0]}")
     if not 0 <= num_segments < 2 ** 31:
         raise ValueError(f"segment_reduce: num_segments {num_segments} "
                          "out of range")
+    return codes
+
+
+def segment_reduce_columns(cols: Sequence[torch.Tensor], gid: torch.Tensor,
+                           num_segments: int, kinds: Sequence[str],
+                           order: Optional[torch.Tensor] = None
+                           ) -> List[torch.Tensor]:
+    """SUM, MIN or MAX (``kinds[i]``) of every column ``cols[i]`` over
+    segments of SORTED int32 group ids (non-decreasing; the engine's gids
+    step by at most 1, then jump to the dump segment), identity in empty
+    segments, int sums wrapping. With ``order`` (int64 row indices, the
+    permutation that sorted the gids), row r of a column is
+    ``col[order[r]]``, so the caller gathers nothing.
+
+    CPU tensors take the plain version. CUDA tensors launch the Hopper
+    kernel once for all columns (one call of the library, counted in
+    ``segment_reduce.launches``); unsorted gids on CUDA give undefined
+    (but in-bounds) results, as do indices in ``order`` outside
+    ``[0, len(gid))``."""
+    cols = list(cols)
+    if len(cols) != len(kinds):
+        raise ValueError(f"segment_reduce: {len(cols)} columns, "
+                         f"{len(kinds)} kinds")
+    kind_codes = []
+    for kind in kinds:
+        if kind not in _KIND_CODE:
+            raise ValueError(f"segment_reduce: unknown kind {kind!r}")
+        kind_codes.append(_KIND_CODE[kind])
+    if not (gid.is_cuda or any(c.is_cuda for c in cols)
+            or (order is not None and order.is_cuda)):
+        return segment_reduce_columns_reference(cols, gid, num_segments,
+                                                kinds, order)
+    dtype_codes = _dtype_codes(cols, gid, order, num_segments)
+    if not cols:
+        return []
     lib = _library()
-    n = col.shape[0]
-    out = torch.empty((num_segments,), dtype=col.dtype, device=col.device)
-    tiles = -(-n // lib.segment_reduce_tile_rows())
-    carry_gid = torch.empty((2 * tiles,), dtype=torch.int32,
-                            device=col.device)
-    carry_val = torch.empty((2 * tiles,), dtype=col.dtype, device=col.device)
-    stream = torch.cuda.current_stream(col.device).cuda_stream
-    rc = lib.segment_reduce(col.data_ptr(), gid.data_ptr(), n,
-                            out.data_ptr(), num_segments,
-                            _DTYPE_CODE[col.dtype], _KIND_CODE[kind],
-                            carry_gid.data_ptr(), carry_val.data_ptr(),
-                            stream)
+    dev = gid.device
+    n = gid.shape[0]
+    k = len(cols)
+    # one output block per dtype, its columns as rows
+    outs: List[Optional[torch.Tensor]] = [None] * k
+    for dtype in {c.dtype for c in cols}:
+        idx = [i for i, c in enumerate(cols) if c.dtype == dtype]
+        block = torch.empty((len(idx), num_segments), dtype=dtype,
+                            device=dev)
+        for i, row in zip(idx, block.unbind(0)):
+            outs[i] = row
+    carries = 2 * -(-n // _tile_rows)
+    carry_gid = torch.empty((carries,), dtype=torch.int32, device=dev)
+    # 8 bytes per carry value, whatever the column's dtype
+    carry_val = torch.empty((k * carries,), dtype=torch.int64, device=dev)
+    rc = lib.segment_reduce_columns(
+        (ctypes.c_void_p * k)(*[c.data_ptr() for c in cols]),
+        (ctypes.c_void_p * k)(*[o.data_ptr() for o in outs]),
+        (ctypes.c_int * k)(*dtype_codes), (ctypes.c_int * k)(*kind_codes),
+        k, gid.data_ptr(), None if order is None else order.data_ptr(), n,
+        num_segments, carry_gid.data_ptr(), carry_val.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         msg = lib.segment_reduce_error_string(rc).decode(errors="replace")
         raise RuntimeError(f"segment_reduce launch failed: CUDA error "
                            f"{rc} ({msg})")
     segment_reduce.launches += 1
-    return out
+    return outs
 
 
-#: launches of the CUDA kernel since the last reset (the CPU path never
-#: counts): how a run shows that its main path went through the kernel
+def segment_reduce(col: torch.Tensor, gid: torch.Tensor, num_segments: int,
+                   kind: str) -> torch.Tensor:
+    """``segment_reduce_columns`` of the one column ``col``."""
+    return segment_reduce_columns([col], gid, num_segments, [kind])[0]
+
+
+#: calls of the CUDA kernel's library since the last reset, one per
+#: ``segment_reduce_columns`` call on the card (the CPU path never counts):
+#: how a run shows that its main path went through the kernel
 segment_reduce.launches = 0
