@@ -34,11 +34,27 @@ Phases, one JSON line each on standard output:
              ``tests/sf1_expected.py``; every kernel launch counter is set
              to 0 just before the timed run and read just after, and the
              kernel must have been called once per aggregated page;
-6. the ``kernels`` line: per kernel its route, source, the TPU kernel it
-   replaces, launches on the main path, its error against the plain
-   version, its time, the plain version's, the library call's and its
-   memory/compute bound at the main path's shape (the page call);
-7. the last line: ``{"ok": true, "device": {...}}``.
+6. q3_sf1  — TPC-H q3 at SF1 the same way: two hash joins (build sides
+             orders and customer), the dynamic filters their builds put
+             on the lineitem and orders scans, the aggregation over the
+             joined pages (one kernel call per aggregated page) and TopN;
+             held against the oracle; reports cold and warm wall, the
+             lineitem rows scanned, the pruned rows, the strategy each
+             join took and the launches; the cold run keeps a copy of
+             the inputs of every kernel call it makes;
+7. q3_columns — each of those calls again, on q3's own inputs (one int64
+             SUM state read through the hash sort's order, thousands of
+             groups per joined page, then the merge), exact against the
+             plain version; the largest page call and the merge timed
+             beside the plain version, ``index_add_`` over the unsorted
+             gids, their device time and their bound;
+8. the ``kernels`` line: per kernel its route, source, the TPU kernel it
+   replaces, launches on the main path (the sum over q1 and q3, with the
+   count of each beside it), its error against the plain version, its
+   time, the plain version's, the library call's and its memory/compute
+   bound at the main path's shape (q1's page call), and the same at q3's
+   page and merge calls (``q3_shapes``);
+9. the last line: ``{"ok": true, "device": {...}}``.
 
 Any failed check raises; nothing is caught, so a failed phase ends the
 run with a non-zero exit code before the last line is printed.
@@ -374,15 +390,22 @@ def _load_expected(qid: int):
     raise AssertionError(f"{path} holds no EXPECTED")
 
 
-def _assert_same(res, oracle_rows):
-    """tests/test_tpch_oracle.py's comparison: decimals as floats, the
-    oracle quantized to each decimal column's scale, floats within
-    rel 1e-6 / abs 0.011 (half-up vs half-even on .5 ties)."""
+def _assert_same(res, oracle_rows, query: str):
+    """tests/test_tpch_oracle.py's comparison, rows in order: decimals as
+    floats, dates as ISO strings, the oracle quantized to each decimal
+    column's scale, floats within rel 1e-6 / abs 0.011 (half-up vs
+    half-even on .5 ties)."""
+    import datetime
     import math
     from decimal import Decimal
 
-    def norm(v):
-        return float(v) if isinstance(v, Decimal) else v
+    def norm(v, t=None):
+        if isinstance(v, Decimal):
+            return float(v)
+        if t is not None and t.name == "date" and isinstance(v, int):
+            return (datetime.date(1970, 1, 1)
+                    + datetime.timedelta(days=v)).isoformat()
+        return v
 
     def quantize(v, t):
         if v is not None and t.is_decimal and isinstance(v, float):
@@ -397,16 +420,23 @@ def _assert_same(res, oracle_rows):
                                 abs_tol=0.011)
         return a == b
 
-    got = [tuple(norm(v) for v in row) for row in res.rows]
+    got = [tuple(norm(v, t) for v, t in zip(row, res.types))
+           for row in res.rows]
     want = [tuple(quantize(norm(v), t) for v, t in zip(row, res.types))
             for row in oracle_rows]
     if len(got) != len(want):
-        raise AssertionError(f"q1: {len(got)} rows, oracle {len(want)}")
+        raise AssertionError(f"{query}: {len(got)} rows, oracle {len(want)}")
     for i, (g, w) in enumerate(zip(got, want)):
         for j, (a, b) in enumerate(zip(g, w)):
             if not close(a, b):
                 raise AssertionError(
-                    f"q1 row {i} col {j}: engine={a!r} oracle={b!r}")
+                    f"{query} row {i} col {j}: engine={a!r} oracle={b!r}")
+
+
+def _aggregated_pages(res) -> int:
+    return sum(sum(op.get("grouping_paths", {}).values())
+               for op in res.stats["operators"]
+               if op["name"] == "HashAggregationOperator")
 
 
 def q1_phase(card):
@@ -432,10 +462,8 @@ def q1_phase(card):
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
     launches = {"segment_reduce": kernels.segment_reduce.launches}
-    _assert_same(res, _load_expected(1))
-    pages = sum(sum(op.get("grouping_paths", {}).values())
-                for op in res.stats["operators"]
-                if op["name"] == "HashAggregationOperator")
+    _assert_same(res, _load_expected(1), "q1")
+    pages = _aggregated_pages(res)
     if pages == 0 or launches["segment_reduce"] != pages:
         raise AssertionError(
             f"segment_reduce launched {launches['segment_reduce']} times "
@@ -450,6 +478,156 @@ def q1_phase(card):
           "peak_bytes": res.stats["memory"]["peak_bytes"],
           "card": card["nvidia_smi"]})
     return launches
+
+
+def _recording(calls):
+    """A stand-in for ``segment_reduce_columns`` that keeps a copy of
+    each call's inputs in ``calls`` and then makes the call."""
+    from trino_tpu_torch.ops import kernels
+
+    def record(cols, gid, num_segments, kinds, order=None):
+        calls.append(([c.clone() for c in cols], gid.clone(), num_segments,
+                      list(kinds), None if order is None else order.clone()))
+        return kernels.segment_reduce_columns(cols, gid, num_segments, kinds,
+                                              order)
+    return record
+
+
+def q3_phase(card):
+    """q3 at SF1; returns the launches of the warm run and the inputs of
+    every kernel call of the cold run (the same calls: the data and the
+    operators' capacity guesses are the same in both runs)."""
+    import torch
+
+    from trino_tpu_torch import LocalQueryRunner
+    from trino_tpu_torch.connectors.tpch import TpchConnector
+    from trino_tpu_torch.ops import aggregation, hashtable, kernels
+    from trino_tpu_torch.resources.tpch_queries import TPCH_QUERIES
+    from trino_tpu_torch.sql.analyzer import Session
+
+    runner = LocalQueryRunner({"tpch": TpchConnector(page_rows=1 << 16)},
+                              Session(catalog="tpch", schema="sf1"),
+                              desired_splits=8, device="cuda")
+    sql = TPCH_QUERIES[3]
+    calls = []
+    aggregation.segment_reduce_columns = _recording(calls)
+    hashtable.segment_reduce_columns = _recording(calls)
+    t0 = time.perf_counter()
+    runner.execute(sql)
+    cold_s = time.perf_counter() - t0
+    aggregation.segment_reduce_columns = kernels.segment_reduce_columns
+    hashtable.segment_reduce_columns = kernels.segment_reduce_columns
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.segment_reduce.launches = 0
+    t0 = time.perf_counter()
+    res = runner.execute(sql)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    launches = {"segment_reduce": kernels.segment_reduce.launches}
+    _assert_same(res, _load_expected(3), "q3")
+    pages = _aggregated_pages(res)
+    if pages == 0 or launches["segment_reduce"] != pages \
+            or len(calls) != pages:
+        raise AssertionError(
+            f"q3: segment_reduce launched {launches['segment_reduce']} "
+            f"times (cold run: {len(calls)} calls) for {pages} aggregated "
+            "pages (want one per page)")
+    dfs = res.stats["dynamic_filters"]
+    joins = [{"name": op["name"],
+              "strategy": op.get("strategy", "sorted-index"),
+              **({"fallback": op["fallback"]} if "fallback" in op else {})}
+             for op in res.stats["operators"] if "Join" in op["name"]]
+    if len(joins) != 2 or len(dfs) != 2 or not all(d["ready"] for d in dfs):
+        raise AssertionError(f"q3: joins {joins}, dynamic filters {dfs}")
+    emit({"phase": "q3_sf1", "rows_out": len(res.rows),
+          "matches_oracle": True, "aggregated_pages": pages,
+          "launches": launches, "cold_s": round(cold_s, 3),
+          "warm_s": round(warm_s, 4),
+          "lineitem_rows_scanned": next(
+              d["scanned_rows"] for d in dfs
+              if d["filter"].startswith("l_orderkey")),
+          "dynamic_filters": dfs, "joins": joins,
+          "peak_bytes": res.stats["memory"]["peak_bytes"],
+          # less the recorded inputs, which the warm run found resident
+          "device_peak_bytes": torch.cuda.max_memory_allocated() - sum(
+              t.nbytes for cols, gid, _, _, order in calls
+              for t in [*cols, gid] + ([] if order is None else [order])),
+          "card": card["nvidia_smi"]})
+    return launches, calls
+
+
+def _bound_ms(cols, n: int, num_segments: int, with_order: bool):
+    """(bound ms, bound_by, bytes) of one ``segment_reduce_columns`` call:
+    gid (and order) read once per row, each column read once per row and
+    written once per segment, against one add/compare per value."""
+    bytes_ = n * (4 + (8 if with_order else 0)) + sum(
+        (n + num_segments) * c.element_size() for c in cols)
+    bytes_ms = bytes_ / HBM_BYTES_PER_S * 1e3
+    ops_ms = n * len(cols) / VECTOR_OPS_PER_S * 1e3
+    return max(bytes_ms, ops_ms), \
+        "bytes" if bytes_ms >= ops_ms else "operations", bytes_
+
+
+def q3_columns_phase(calls):
+    """Every ``segment_reduce_columns`` call of q3's run, on the inputs the
+    run gave it, against its plain version (ints exactly); then the
+    largest page call and the last call (the merge of the page partials)
+    timed beside the plain version and ``index_add_`` over the unsorted
+    gids."""
+    import torch
+
+    from trino_tpu_torch.ops import kernels
+
+    errs = [_check_columns(cols, gid, ns, kinds, order, kernels)
+            for cols, gid, ns, kinds, order in calls]
+    shapes = []
+    for cols, gid, ns, kinds, order in calls:
+        live = gid < gid.shape[0]
+        shapes.append({"n": gid.shape[0], "live": int(live.sum()),
+                       "groups": int(gid[live].max()) + 1
+                       if bool(live.any()) else 0})
+    emit({"phase": "q3_columns", "calls": len(calls),
+          "columns": sorted({len(c[0]) for c in calls}),
+          "dtypes": sorted({str(col.dtype).removeprefix("torch.")
+                            for c in calls for col in c[0]}),
+          "kinds": sorted({k for c in calls for k in c[3]}),
+          "order": all(c[4] is not None for c in calls),
+          "shapes": shapes, "max_abs_err": max(errs)})
+    largest = max(range(len(calls) - 1), key=lambda i: shapes[i]["n"])
+    timed = {}
+    for case, i in (("page", largest), ("merge", len(calls) - 1)):
+        cols, gid, ns, kinds, order = calls[i]
+        n = gid.shape[0]
+        unsorted = torch.empty_like(gid)
+        if order is None:
+            unsorted.copy_(gid)
+        else:
+            unsorted[order] = gid
+        unsorted64 = unsorted.to(torch.int64)
+        outs = [torch.empty(ns, dtype=c.dtype, device=c.device)
+                for c in cols]
+
+        def library():
+            for out, col in zip(outs, cols):
+                out.index_add_(0, unsorted64, col)
+
+        def kernel():
+            kernels.segment_reduce_columns(cols, gid, ns, kinds, order)
+
+        bound_ms, bound_by, bytes_ = _bound_ms(cols, n, ns,
+                                               order is not None)
+        timed[case] = {
+            **shapes[i], "call": i, "bytes": bytes_,
+            "max_abs_err": errs[i], "bound_ms": bound_ms,
+            "bound_by": bound_by, "kernel_ms": time_ms(kernel),
+            "plain_ms": time_ms(
+                lambda: kernels.segment_reduce_columns_reference(
+                    cols, gid, ns, kinds, order)),
+            "library_ms": time_ms(library),
+            "device_ms": kernel_device_ms(kernel)["total"]}
+        emit({"phase": "q3_columns", "case": case, **timed[case]})
+    return timed
 
 
 def main() -> int:
@@ -467,7 +645,12 @@ def main() -> int:
     build_phase()
     kernel_phase()
     main_shape = columns_phase()
-    launches = q1_phase(card)
+    q1_launches = q1_phase(card)
+    q3_launches, q3_calls = q3_phase(card)
+    launches = {"q1": q1_launches["segment_reduce"],
+                "q3": q3_launches["segment_reduce"]}
+    q3_shapes = q3_columns_phase(q3_calls)
+    del q3_calls
     bytes_ms = main_shape["bytes"] / HBM_BYTES_PER_S * 1e3
     ops_ms = main_shape["n"] * STATES_PER_PAGE / VECTOR_OPS_PER_S * 1e3
     emit({"kernels": [{
@@ -475,13 +658,18 @@ def main() -> int:
         "route": "cuda",
         "source": "trino_tpu_torch/csrc/segment_reduce.cu",
         "replaces": "trino_tpu/ops/pallas_kernels.py:100",
-        "launches": launches["segment_reduce"],
+        "launches": sum(launches.values()),
+        "launches_by_query": launches,
         "max_abs_err": main_shape["max_abs_err"],
         "ms": main_shape["kernel_ms"],
         "plain_ms": main_shape["plain_ms"],
         "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "library_ms": main_shape["library_ms"],
+        "q3_shapes": {case: {k: t[k] for k in (
+            "n", "groups", "max_abs_err", "kernel_ms", "plain_ms",
+            "bound_ms", "bound_by", "library_ms")}
+            for case, t in q3_shapes.items()},
     }]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": card["kind"],
                                  "count": card["count"]}})

@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
-"""Where TPC-H q1's time goes in the torch engine.
+"""Where a TPC-H query's time goes in the torch engine.
 
-    python3 scripts/profile_torch_q1.py
+    python3 scripts/profile_torch_q1.py [QUERY]
 
-Runs q1 at SF1 on the CUDA card once to warm up, then three timed runs,
-and prints JSON lines:
+Runs TPC-H query QUERY (default 1; q3 is the join slice) at SF1 on the
+CUDA card once to warm up, then three timed runs, and prints JSON lines:
 
-- ``generate``: host time to generate the scanned lineitem columns alone
-  (the tpch connector is a numpy generator on the host);
+- ``generate``: host time to generate the columns of the query's first
+  scan alone (lineitem for q1 and q3; the tpch connector is a numpy
+  generator on the host);
 - ``run``: each timed run's wall (host clock, ending in a device sync);
 - ``operators``: per-operator host wall of one run (the driver's stats;
   device work is asynchronous, so an operator's wall is its enqueue time
@@ -39,7 +40,7 @@ def emit(obj):
     print(json.dumps(obj), flush=True)
 
 
-def main() -> int:
+def main(query: int) -> int:
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -64,7 +65,7 @@ def main() -> int:
     runner = LocalQueryRunner({"tpch": conn},
                               Session(catalog="tpch", schema="sf1"),
                               desired_splits=8, device=device)
-    sql = TPCH_QUERIES[1]
+    sql = TPCH_QUERIES[query]
 
     # host generation of the scanned columns, without the engine
     root = runner.plan_statement(parse_statement(sql))
@@ -81,7 +82,8 @@ def main() -> int:
             if page is not None:
                 rows += page.num_rows
         src.close()
-    emit({"phase": "generate", "rows": rows, "columns": len(cols),
+    emit({"phase": "generate", "query": query, "table": scan.table.table,
+          "rows": rows, "columns": len(cols),
           "seconds": time.perf_counter() - t0, "card": card})
 
     runner.execute(sql)  # warm-up: loads the kernel library
@@ -90,7 +92,7 @@ def main() -> int:
         t0 = time.perf_counter()
         runner.execute(sql)
         sync()
-        emit({"phase": "run", "run": i,
+        emit({"phase": "run", "query": query, "run": i,
               "seconds": time.perf_counter() - t0, "card": card})
 
     # per-operator host wall of one run
@@ -104,7 +106,8 @@ def main() -> int:
         wall = time.perf_counter() - t0
     finally:
         local.memory_pool.close()
-    emit({"phase": "operators", "seconds": wall, "card": card,
+    emit({"phase": "operators", "query": query, "seconds": wall,
+          "card": card,
           "operators": [{"name": st.name, "wall_s": st.wall_ns / 1e9,
                          "pages_out": st.output_pages}
                         for d in plan.drivers for st in d.stats]})
@@ -127,7 +130,8 @@ def main() -> int:
             if re.search(r"\b(fill|tile|carry)_kernel<", e.key)]
     top = sorted(kernels, key=lambda e: e.self_device_time_total,
                  reverse=True)[:12]
-    emit({"phase": "device", "wall_s": wall, "device_busy_s": busy_s,
+    emit({"phase": "device", "query": query, "wall_s": wall,
+          "device_busy_s": busy_s,
           "device_busy_share": busy_s / wall, "card": card,
           "segment_reduce_calls": engine_kernels.segment_reduce.launches,
           "segment_reduce_cuda_launches": sum(e.count for e in ours),
@@ -140,4 +144,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(int(sys.argv[1]) if len(sys.argv) > 1 else 1))

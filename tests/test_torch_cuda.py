@@ -197,3 +197,68 @@ def test_q1_on_the_card_equals_the_cpu_path(dev):
                 if op["name"] == "HashAggregationOperator")
     assert pages > 0 and launched == pages
     assert on_card.rows == run("cpu").rows
+
+
+@pytest.mark.parametrize("strategy", ["AUTOMATIC", "MATMUL"])
+@pytest.mark.parametrize("schema", ["micro", "tiny"])
+def test_q3_on_the_card_equals_the_cpu_path(dev, schema, strategy):
+    """q3's joins, dynamic filters, aggregation and TopN on the card give
+    the CPU path's rows, in order, and the same pruned-row counts."""
+    def run(device):
+        runner = LocalQueryRunner(
+            {"tpch": TpchConnector(page_rows=4096)},
+            Session(catalog="tpch", schema=schema,
+                    properties={"join_strategy": strategy}),
+            device=device)
+        return runner.execute(TPCH_QUERIES[3])
+
+    before = kernels.segment_reduce.launches
+    on_card = run(dev)
+    launched = kernels.segment_reduce.launches - before
+    pages = sum(sum(op.get("grouping_paths", {}).values())
+                for op in on_card.stats["operators"]
+                if op["name"] == "HashAggregationOperator")
+    assert pages > 0 and launched == pages
+    on_cpu = run("cpu")
+    assert len(on_card.rows) == 10
+    assert on_card.rows == on_cpu.rows
+    assert on_card.stats["dynamic_filters"] == on_cpu.stats["dynamic_filters"]
+
+
+def test_matmul_probe_on_the_card_equals_the_sorted_index(dev):
+    """The one-hot product's (lo, count) on the card equals the two
+    binary searches' for every usable probe row, at a build of 2^20 rows
+    (positions far above TF32's 11 exact bits) — also with TF32 allowed
+    for float32 products, which the float64 product does not use."""
+    from trino_tpu_torch import types as T
+    from trino_tpu_torch.ops import join, matmul_join
+
+    rng = np.random.default_rng(7)
+    n_build, k_range = 1 << 20, 1000
+    bkey = torch.from_numpy(rng.integers(0, k_range, n_build)).to(dev)
+    bnull = torch.from_numpy(rng.random(n_build) < 0.05).to(dev)
+    bvalid = torch.from_numpy(rng.random(n_build) < 0.95).to(dev)
+    b = join._assemble_build_side([T.BIGINT], [0], [bkey], [bnull], bvalid,
+                                  [None])
+    bridge = join.JoinBridge()
+    bridge.set_build(b)
+    op = matmul_join.MatmulJoinOperator([T.BIGINT], [0], bridge)
+    pkey_raw = torch.from_numpy(rng.integers(-3, k_range + 3, 1 << 16)).to(dev)
+    pnull = torch.from_numpy(rng.random(1 << 16) < 0.05).to(dev)
+    pkey, anynull = join._key_u64([pkey_raw], [pnull], [T.BIGINT], "single")
+    usable = ~anynull & (pkey_raw != -1)   # -1 has the sentinel's bits
+    slo, scount = join._probe_counts(b.key_sorted, b.usable_sorted, pkey,
+                                     usable)
+    allow = torch.backends.cuda.matmul.allow_tf32
+    try:
+        for tf32 in (False, True):
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+            op._mm = None
+            assert op._ensure_table(b), op._fallback_reason
+            lo, count = op._probe_lo_count(b, pkey, usable)
+            assert torch.equal(count, scount)
+            live = scount > 0
+            assert torch.equal(lo[live], slo[live])
+            assert int(slo[live].max()) > 1 << 19
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = allow

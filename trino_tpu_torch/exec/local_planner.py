@@ -4,32 +4,37 @@ Reference analog: ``sql/planner/LocalExecutionPlanner.java``: the visitor
 that turns a plan fragment into DriverFactories, fixing the physical
 channel layout of every pipeline and compiling expressions.
 
-The torch engine plans TableScan, Values, Filter, Project, Aggregation,
-Sort and Output. Every other node raises NOT_SUPPORTED: joins, set
-operations, limits, TopN, windows, unnest, writers and remote sources
-are not ported yet.
+The torch engine plans TableScan (with dynamic filters), Values, Filter,
+Project, Aggregation, Join (sorted-index and matmul strategies), cross
+join, Sort, TopN, Limit/Offset and Output. Every other node raises
+NOT_SUPPORTED: set operations, EnforceSingleRow, windows, unnest,
+writers and remote sources are not ported yet.
 """
 
 from __future__ import annotations
 
 from decimal import Decimal
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 from .. import types as T
 from ..block import Page
 from ..expr.compiler import PageProcessor
 from ..expr.ir import Call, InputRef, Literal, RowExpression
 from ..ops.aggregation import AggCall, HashAggregationOperator
-from ..ops.operator import (FilterProjectOperator, Operator,
+from ..ops.join import HashBuilderOperator, JoinBridge, LookupJoinOperator
+from ..ops.matmul_join import MatmulJoinOperator
+from ..ops.operator import (FilterProjectOperator, LimitOperator,
+                            OffsetOperator, Operator,
                             OutputCollectorOperator, TableScanOperator,
                             ValuesOperator)
-from ..ops.sort import OrderByOperator
+from ..ops.sort import OrderByOperator, TopNOperator
 from ..ops.sortkeys import SortKey
 from ..planner.logical_planner import Metadata
-from ..planner.plan import (AggregationNode, FilterNode, OutputNode,
-                            PlanNode, ProjectNode, SortNode, TableScanNode,
+from ..planner.plan import (AggregationNode, CrossJoinNode, FilterNode,
+                            JoinNode, LimitNode, OutputNode, PlanNode,
+                            ProjectNode, SortNode, TableScanNode, TopNNode,
                             ValuesNode)
-from ..planner.symbols import to_input_refs
+from ..planner.symbols import Symbol, to_input_refs
 from ..types import TrinoError
 
 
@@ -64,19 +69,31 @@ class LocalExecutionPlanner:
     """Builds the operators of one plan on ``device``."""
 
     def __init__(self, metadata: Metadata, device, desired_splits: int = 4,
-                 memory_pool=None, hash_grouping: bool = True,
-                 scan_coalesce: bool = True):
+                 memory_pool=None, join_max_lanes: Optional[int] = None,
+                 dynamic_filtering: bool = True,
+                 hash_grouping: bool = True,
+                 scan_coalesce: bool = True,
+                 matmul_max_key_range: int = 1024):
         self.metadata = metadata
         self.device = device
         self.desired_splits = desired_splits
         self.memory_pool = memory_pool
+        self.join_max_lanes = join_max_lanes
+        self.dynamic_filtering = dynamic_filtering
         #: GROUP BY path: vectorized open-addressing hash table (default)
         #: vs sort-based oracle (``hash_grouping_enabled`` session prop)
         self.hash_grouping = hash_grouping
         #: coalesce split-tail scan pages up to the connector page size
         #: before device upload (``scan_coalesce_enabled``)
         self.scan_coalesce = scan_coalesce
+        #: densest key domain the matmul join strategy may one-hot
+        #: encode (``matmul_join_max_key_range``) — the operator's
+        #: runtime re-check of the cost model's range estimate
+        self.matmul_max_key_range = matmul_max_key_range
         self.pipelines: List[PhysicalPipeline] = []
+        # scan-node id -> [(channel, DynamicFilter)] attachments
+        self._scan_dfs: Dict[int, List] = {}
+        self.dynamic_filters: List = []  # all filters, for query stats
 
     def _fp_operator(self, input_types, projections,
                      filter_expr=None) -> FilterProjectOperator:
@@ -117,6 +134,8 @@ class LocalExecutionPlanner:
         conn = self.metadata.connectors[node.catalog]
         columns = [c for _, c in node.assignments]
         scan = TableScanOperator(conn, columns, self.device,
+                                 dynamic_filters=self._scan_dfs.pop(
+                                     id(node), []),
                                  coalesce_rows=getattr(
                                      conn, "page_rows", None)
                                  if self.scan_coalesce else None)
@@ -157,6 +176,91 @@ class LocalExecutionPlanner:
         ops.append(self._fp_operator(types_, projections))
         new_layout = {s.name: i for i, (s, _) in enumerate(node.assignments)}
         return ops, new_layout, [s.type for s, _ in node.assignments]
+
+    def _v_JoinNode(self, node: JoinNode):
+        return self._plan_join(node.join_type, node.left, node.right,
+                               node.criteria, node.filter_expr,
+                               node.strategy, node.strategy_detail)
+
+    def _v_CrossJoinNode(self, node: CrossJoinNode):
+        # const-key equi join (build side replicated once)
+        return self._plan_join("inner", node.left, node.right, [], None)
+
+    def _plan_join(self, join_type: str, left: PlanNode, right: PlanNode,
+                   criteria: List[Tuple[Symbol, Symbol]],
+                   filter_expr: Optional[RowExpression],
+                   strategy: str = "sorted-index",
+                   strategy_detail: str = ""):
+        build_dfs = []
+        if self.dynamic_filtering:
+            from .dynamic_filter import plan_dynamic_filters
+
+            # register BEFORE visiting the probe side so its TableScan
+            # picks the filters up; the build pipeline runs first, so
+            # domains are complete before the first probe page scans
+            build_dfs = plan_dynamic_filters(self, left, criteria,
+                                             join_type)
+        bops, blayout, btypes = self.visit(right)
+        pops, playout, ptypes = self.visit(left)
+
+        if not criteria:
+            # const key: append a literal-0 key channel to both sides
+            bops.append(self._fp_operator(
+                btypes, [InputRef(t, i) for i, t in enumerate(btypes)]
+                + [Literal(T.BIGINT, 0)]))
+            btypes = btypes + [T.BIGINT]
+            pops.append(self._fp_operator(
+                ptypes, [InputRef(t, i) for i, t in enumerate(ptypes)]
+                + [Literal(T.BIGINT, 0)]))
+            ptypes = ptypes + [T.BIGINT]
+            build_keys = [len(btypes) - 1]
+            probe_keys = [len(ptypes) - 1]
+        else:
+            # string keys are fine: the probe remaps its dictionary codes
+            # into the build's pool (LookupJoinOperator._remap)
+            probe_keys = [playout[lsym.name] for lsym, _ in criteria]
+            build_keys = [blayout[rsym.name] for _, rsym in criteria]
+
+        bridge = JoinBridge()
+        bops.append(HashBuilderOperator(
+            btypes, build_keys, bridge, self.device,
+            memory_context=self._mem_ctx("join-build"),
+            dynamic_filters=[(blayout[rs.name], df)
+                             for rs, df in build_dfs]))
+        self.pipelines.append(PhysicalPipeline(bops))
+
+        filter_fn = None
+        if filter_expr is not None:
+            combined_layout = dict(playout)
+            for name, ch in blayout.items():
+                combined_layout[name] = len(ptypes) + ch
+            combined_types = ptypes + btypes
+            proc = PageProcessor(
+                combined_types,
+                [InputRef(t, i) for i, t in enumerate(combined_types)],
+                to_input_refs(filter_expr, combined_layout))
+            filter_fn = proc.process
+
+        if strategy == "matmul":
+            # the cost model picked the blocked one-hot matmul probe;
+            # the operator re-checks the actual key range per build and
+            # takes the sorted index otherwise (reason in its metrics)
+            pops.append(MatmulJoinOperator(
+                ptypes, probe_keys, bridge, join_type, filter_fn,
+                max_lanes=self.join_max_lanes,
+                max_key_range=self.matmul_max_key_range,
+                strategy_detail=strategy_detail))
+        else:
+            pops.append(LookupJoinOperator(
+                ptypes, probe_keys, bridge, join_type, filter_fn,
+                max_lanes=self.join_max_lanes))
+        out_layout = dict(playout)
+        out_types = ptypes
+        if join_type not in ("semi", "anti"):
+            for name, ch in blayout.items():
+                out_layout[name] = len(ptypes) + ch
+            out_types = ptypes + btypes
+        return pops, out_layout, out_types
 
     def _v_AggregationNode(self, node: AggregationNode):
         ops, layout, types_ = self.visit(node.source)
@@ -213,6 +317,20 @@ class LocalExecutionPlanner:
         keys = _sort_keys(node.orderings, layout)
         ops.append(OrderByOperator(types_, keys,
                                    memory_context=self._mem_ctx("sort")))
+        return ops, layout, types_
+
+    def _v_TopNNode(self, node: TopNNode):
+        ops, layout, types_ = self.visit(node.source)
+        keys = _sort_keys(node.orderings, layout)
+        ops.append(TopNOperator(types_, keys, node.count))
+        return ops, layout, types_
+
+    def _v_LimitNode(self, node: LimitNode):
+        ops, layout, types_ = self.visit(node.source)
+        if node.offset:
+            ops.append(OffsetOperator(node.offset))
+        if node.count is not None:
+            ops.append(LimitOperator(node.count))
         return ops, layout, types_
 
 

@@ -7,8 +7,9 @@ footprint of the device pages they retain, and a reservation over the
 query's ``query_max_memory_bytes`` fails with EXCEEDED_LOCAL_MEMORY_LIMIT.
 
 The JAX engine's spill tiers (device -> host RAM -> disk), revocation
-and the node-wide pool are not ported yet: a session with
-``spill_enabled`` raises NOT_SUPPORTED.
+(and with it the hybrid hash join's partitioned build) and the node-wide
+pool are not ported yet: a session with ``spill_enabled`` raises
+NOT_SUPPORTED.
 """
 
 from __future__ import annotations
@@ -54,6 +55,22 @@ def device_page_bytes(page) -> int:
         total += cap * c.element_size()
         total += cap  # null mask
     return total
+
+
+def reserve_and_append(ctx: "OperatorMemoryContext", pages: List, page):
+    """The add_input discipline of operators that retain their input:
+    charge the page, then keep it."""
+    ctx.reserve(device_page_bytes(page))
+    pages.append(page)
+
+
+def prepare_finish(ctx: "OperatorMemoryContext", pages: List) -> int:
+    """The accounted bytes of the retained pages, which the operator's
+    finish pass now owns; the caller reserves its finish transient (~2x
+    this, for the concatenation and its result). The JAX engine parks
+    the pages on the host first when that transient would not fit; with
+    no spill tier here, the reservation fails instead."""
+    return sum(device_page_bytes(p) for p in pages)
 
 
 class OperatorMemoryContext:

@@ -9,13 +9,15 @@ batches with validity masks on one device — so a pipeline's hot ops chain
 on the device without host round-trips. Host boundaries are scans (numpy
 -> device) and output (device -> numpy).
 
-Limit, Offset, EnforceSingleRow, deferred sources and table writers are
-not ported yet; the local planner rejects plans that need them.
+EnforceSingleRow, deferred sources and table writers are not ported yet;
+the local planner rejects plans that need them.
 """
 
 from __future__ import annotations
 
 from typing import List, Optional, Sequence
+
+import torch
 
 from ..block import DevicePage, Page
 from ..connectors.spi import ColumnHandle, Connector, ConnectorSplit
@@ -68,13 +70,20 @@ class TableScanOperator(SourceOperator):
     ``coalesce_rows`` before the upload, so downstream kernels see one
     full device batch instead of one launch per fragment (reference:
     ``operator/MergePages.java`` — the min-page-size rewindow in front
-    of expensive operators)."""
+    of expensive operators).
+
+    ``dynamic_filters`` are join build-side key domains, [(channel,
+    DynamicFilter)], applied to every uploaded page as a lane-mask update
+    (reference analog: dynamic-filter TupleDomains pushed into
+    ConnectorPageSource)."""
 
     def __init__(self, connector: Connector, columns: Sequence[ColumnHandle],
-                 device, coalesce_rows: Optional[int] = None):
+                 device, dynamic_filters: Sequence = (),
+                 coalesce_rows: Optional[int] = None):
         self.connector = connector
         self.columns = list(columns)
         self.device = device
+        self.dynamic_filters = list(dynamic_filters)
         self.coalesce_rows = coalesce_rows
         self._buffer: List[Page] = []
         self._buffered_rows = 0
@@ -90,7 +99,12 @@ class TableScanOperator(SourceOperator):
         self._no_more_splits = True
 
     def _upload(self, page: Page) -> DevicePage:
-        return DevicePage.from_page(page, device=self.device)
+        dp = DevicePage.from_page(page, device=self.device)
+        for ch, df in self.dynamic_filters:
+            dp = DevicePage(dp.types, dp.cols, dp.nulls,
+                            df.apply(dp.cols[ch], dp.nulls[ch], dp.valid),
+                            dp.dictionaries)
+        return dp
 
     def _flush(self) -> DevicePage:
         pages, self._buffer = self._buffer, []
@@ -155,6 +169,87 @@ class FilterProjectOperator(Operator):
     def add_input(self, page: DevicePage):
         assert self._pending is None
         self._pending = self.processor.process(page)
+
+    def get_output(self) -> Optional[DevicePage]:
+        out, self._pending = self._pending, None
+        if out is None and self._finishing:
+            self._done = True
+        return out
+
+    def is_finished(self) -> bool:
+        return self._done
+
+
+def _running_valid(valid, seen, lo: int, hi: int):
+    """Keep live lanes whose running ordinal (``seen`` so far + position
+    within this page) lands in (lo, hi]; returns the new mask and the
+    updated device-resident total."""
+    run = torch.cumsum(valid.to(torch.int64), 0) + seen
+    return valid & (run > lo) & (run <= hi), run[-1]
+
+
+class LimitOperator(Operator):
+    """LIMIT n (reference: operator/LimitOperator.java).
+
+    Device-resident: the running row count stays a device scalar and the
+    mask trim is plain tensor ops — no per-page host pull of the valid
+    mask. ``needs_input`` reads the count (one scalar sync per page, as
+    the reference's), so the driver stops pulling input once the limit
+    fills."""
+
+    def __init__(self, limit: int):
+        self.limit = limit
+        self._seen = None          # device scalar: rows passed so far
+        self._known_seen = 0       # its host view
+        self._pending: Optional[DevicePage] = None
+        self._done = False
+
+    def needs_input(self) -> bool:
+        if self._seen is not None:
+            self._known_seen = int(self._seen)
+        return (self._pending is None and self._known_seen < self.limit
+                and not self._finishing)
+
+    def add_input(self, page: DevicePage):
+        if self._known_seen >= self.limit:
+            return
+        seen = 0 if self._seen is None else self._seen
+        new_valid, self._seen = _running_valid(page.valid, seen, 0,
+                                               self.limit)
+        self._pending = DevicePage(page.types, page.cols, page.nulls,
+                                   new_valid, page.dictionaries)
+
+    def get_output(self) -> Optional[DevicePage]:
+        out, self._pending = self._pending, None
+        if out is None and (self._finishing
+                            or self._known_seen >= self.limit):
+            self._done = True
+        return out
+
+    def is_finished(self) -> bool:
+        return self._done
+
+
+class OffsetOperator(Operator):
+    """OFFSET n: drops the first n live rows (reference:
+    operator/OffsetOperator.java). Fully device-resident — no control
+    flow depends on the running count, so it never syncs to host."""
+
+    def __init__(self, offset: int):
+        self.offset = offset
+        self._seen = None
+        self._pending: Optional[DevicePage] = None
+        self._done = False
+
+    def needs_input(self) -> bool:
+        return self._pending is None and not self._finishing
+
+    def add_input(self, page: DevicePage):
+        seen = 0 if self._seen is None else self._seen
+        new_valid, self._seen = _running_valid(
+            page.valid, seen, self.offset, torch.iinfo(torch.int64).max)
+        self._pending = DevicePage(page.types, page.cols, page.nulls,
+                                   new_valid, page.dictionaries)
 
     def get_output(self) -> Optional[DevicePage]:
         out, self._pending = self._pending, None

@@ -1,7 +1,7 @@
-"""ORDER BY operator on torch.
+"""ORDER BY and TopN operators on torch.
 
 Reference analog: ``operator/OrderByOperator.java`` (PagesIndex +
-compiled PagesIndexOrdering).
+compiled PagesIndexOrdering) and ``operator/TopNOperator.java``.
 
 Ordering keys normalize to (null-bit, int64) operand pairs
 (ops/sortkeys.py); the whole batch sorts by one permutation built from
@@ -9,9 +9,8 @@ stable argsorts, from the last key operand to the first, and every
 payload column is gathered through it.
 
 The JAX engine's bounded-memory host sort (taken when the whole-input
-device sort does not fit the query's memory pool) and ``TopNOperator``
-are not ported yet: here a sort that does not fit raises the pool's
-MemoryExceededError.
+device sort does not fit the query's memory pool) is not ported yet:
+here a sort that does not fit raises the pool's MemoryExceededError.
 """
 
 from __future__ import annotations
@@ -117,6 +116,48 @@ class OrderByOperator(Operator):
         cols, nulls, valid = sorted_by(key_ops, page.cols, page.nulls,
                                        page.valid)
         return DevicePage(page.types, cols, nulls, valid, page.dictionaries)
+
+    def is_finished(self) -> bool:
+        return self._done
+
+
+class TopNOperator(Operator):
+    """ORDER BY ... LIMIT n with bounded memory (reference:
+    TopNOperator.java / GroupedTopNBuilder): each page merges into the
+    running top n, which keeps ``padded_size(n)`` lanes."""
+
+    def __init__(self, input_types: Sequence[T.Type],
+                 sort_keys: Sequence[SortKey], n: int):
+        self.input_types = list(input_types)
+        self.sort_keys = list(sort_keys)
+        self.n = n
+        self._top: Optional[DevicePage] = None
+        self._emitted = False
+        self._done = False
+
+    def add_input(self, page: DevicePage):
+        pages = [self._top, page] if self._top is not None else [page]
+        cap = padded_size(sum(p.capacity for p in pages))
+        merged = _concat_pages(pages, cap)
+        key_ops = _make_key_ops(merged, self.sort_keys)
+        cols, nulls, valid = sorted_by(key_ops, merged.cols, merged.nulls,
+                                       merged.valid)
+        keep = padded_size(max(self.n, 16))
+        if keep < cap:
+            cols = [c[:keep] for c in cols]
+            nulls = [x[:keep] for x in nulls]
+            valid = valid[:keep]
+        valid = valid & (torch.arange(valid.shape[0],
+                                      device=valid.device) < self.n)
+        self._top = DevicePage(merged.types, cols, nulls, valid,
+                               merged.dictionaries)
+
+    def get_output(self) -> Optional[DevicePage]:
+        if not self._finishing or self._emitted:
+            return None
+        self._emitted = True
+        self._done = True
+        return self._top
 
     def is_finished(self) -> bool:
         return self._done

@@ -310,13 +310,12 @@ class Optimizer:
 # estimate that executed.
 
 
-#: the matmul join operator's f32-exactness bound on build rows (one-hot
-#: f32 matmul counts stay exact below 2^24); the port has no matmul join
-#: operator yet, so the cost model keeps its own copy of the constant
-MAX_BUILD_ROWS = 1 << 24
-
-
 def _matmul_max_build_rows() -> int:
+    """The operator's f32-exactness bound, imported lazily (the ops
+    module pulls torch; the planner stays light until a join is costed)
+    so planner estimate and runtime re-check share one definition."""
+    from ..ops.matmul_join import MAX_BUILD_ROWS
+
     return MAX_BUILD_ROWS
 
 

@@ -5,7 +5,10 @@ Reference analog: ``core/trino-main/.../testing/LocalQueryRunner.java:254``
 — the single-node, no-HTTP engine. The path is the JAX engine's
 (``trino_tpu/runner.py``: parse -> analyze -> plan -> optimize ->
 LocalExecutionPlanner -> Driver) without its plan and result caches, plan
-templates, batching and history-based statistics.
+templates, batching and history-based statistics. Ported plans: scans
+(with dynamic filters from join builds), filter/project, aggregation,
+hash joins (sorted-index and matmul strategies), sort, TopN and
+limit/offset; the local planner raises NOT_SUPPORTED on the rest.
 
 The device is explicit: ``device`` defaults to ``"cuda"``, and a runner
 asked for CUDA on a machine without a GPU raises instead of running on
@@ -97,6 +100,9 @@ class LocalQueryRunner:
                      "operators": _operator_metrics(plan.drivers)}
         finally:
             local.memory_pool.close()
+        if local.dynamic_filters:
+            stats["dynamic_filters"] = [df.stats()
+                                        for df in local.dynamic_filters]
         return QueryResult(plan.column_names, plan.output_types, rows,
                            stats=stats)
 
@@ -115,8 +121,13 @@ class LocalQueryRunner:
         return LocalExecutionPlanner(
             self.metadata, self.device, self._splits(),
             memory_pool=pool_from_session(self.session),
+            join_max_lanes=SP.value(self.session, "join_max_expand_lanes"),
+            dynamic_filtering=SP.value(self.session,
+                                       "enable_dynamic_filtering"),
             hash_grouping=SP.value(self.session, "hash_grouping_enabled"),
-            scan_coalesce=SP.value(self.session, "scan_coalesce_enabled"))
+            scan_coalesce=SP.value(self.session, "scan_coalesce_enabled"),
+            matmul_max_key_range=SP.value(self.session,
+                                          "matmul_join_max_key_range"))
 
 
 def _operator_metrics(drivers) -> List[dict]:
