@@ -48,13 +48,34 @@ Phases, one JSON line each on standard output:
              plain version; the largest page call and the merge timed
              beside the plain version, ``index_add_`` over the unsorted
              gids, their device time and their bound;
-8. the ``kernels`` line: per kernel its route, source, the TPU kernel it
-   replaces, launches on the main path (the sum over q1 and q3, with the
-   count of each beside it), its error against the plain version, its
-   time, the plain version's, the library call's and its memory/compute
-   bound at the main path's shape (q1's page call), and the same at q3's
-   page and merge calls (``q3_shapes``);
-9. the last line: ``{"ok": true, "device": {...}}``.
+8. q6_sf1, q13_sf1, q18_sf1 — TPC-H q6 (one global aggregation), q13
+             (a left outer join and two aggregations) and q18 (a
+             ~1.5-million-group aggregation of lineitem behind a semijoin)
+             at SF1 the same way, each held against the oracle, with cold
+             and warm wall, kernel calls (one per aggregated page) and the
+             joins' strategies; q18's cold run records its kernel calls;
+9. q18_columns — q18's calls replayed like q3's, exact; its page call
+             with the most live rows and the merge with the most groups
+             timed the same way;
+10. window_sf1 — two window queries over orders at SF1 (window
+             aggregates over four specifications of o_custkey, and a
+             row_number filter that plans to grouped top-N), each held
+             exactly against a numpy oracle that reads the same generated
+             columns through the connector's page source and computes the
+             answer with lexsort/cumsum, decimals as unscaled integers;
+11. sql_surface — the 22 TPC-H queries at tiny (q19 at micro), the 32
+             TPC-DS queries at micro and one each of DISTINCT, UNION ALL,
+             INTERSECT, EXCEPT, UNNEST and a scalar subquery, on the card
+             and on the engine's CPU path: the rows must agree (as sorted
+             lists);
+12. the ``kernels`` line: per kernel its route, source, the TPU kernel it
+   replaces, launches on the main path (the sum over every query run
+   above, with the count of each beside it), its error against the plain
+   version, its time, the plain version's, the library call's and its
+   memory/compute bound at the main path's shape (q1's page call), and
+   the same at q3's and q18's page and merge calls (``q3_shapes``,
+   ``q18_shapes``);
+13. the last line: ``{"ok": true, "device": {...}}``.
 
 Any failed check raises; nothing is caught, so a failed phase ends the
 run with a non-zero exit code before the last line is printed.
@@ -557,6 +578,328 @@ def q3_phase(card):
     return launches, calls
 
 
+def _join_strategies(res):
+    return [{"name": op["name"],
+             "strategy": op.get("strategy", "sorted-index"),
+             **({"fallback": op["fallback"]} if "fallback" in op else {})}
+            for op in res.stats["operators"] if "Join" in op["name"]]
+
+
+def _sf1_runner(device="cuda", schema="sf1"):
+    from trino_tpu_torch import LocalQueryRunner
+    from trino_tpu_torch.connectors.tpch import TpchConnector
+    from trino_tpu_torch.sql.analyzer import Session
+
+    return LocalQueryRunner({"tpch": TpchConnector(page_rows=1 << 16)},
+                            Session(catalog="tpch", schema=schema),
+                            desired_splits=8, device=device)
+
+
+def tpch_sf1_phase(card, qid: int, calls=None):
+    """TPC-H ``qid`` at SF1, held against the oracle; cold and warm wall,
+    segment-reduce calls (one per aggregated page) and the joins'
+    strategies. With ``calls``, the cold run keeps a copy of the inputs
+    of every kernel call it makes. Returns the warm run's launches."""
+    import torch
+
+    from trino_tpu_torch.ops import aggregation, hashtable, kernels
+    from trino_tpu_torch.resources.tpch_queries import TPCH_QUERIES
+
+    runner = _sf1_runner()
+    sql = TPCH_QUERIES[qid]
+    if calls is not None:
+        aggregation.segment_reduce_columns = _recording(calls)
+        hashtable.segment_reduce_columns = _recording(calls)
+    t0 = time.perf_counter()
+    runner.execute(sql)
+    cold_s = time.perf_counter() - t0
+    aggregation.segment_reduce_columns = kernels.segment_reduce_columns
+    hashtable.segment_reduce_columns = kernels.segment_reduce_columns
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.segment_reduce.launches = 0
+    t0 = time.perf_counter()
+    res = runner.execute(sql)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    launches = kernels.segment_reduce.launches
+    _assert_same(res, _load_expected(qid), f"q{qid}")
+    pages = _aggregated_pages(res)
+    if pages == 0 or launches != pages or \
+            (calls is not None and len(calls) != pages):
+        raise AssertionError(
+            f"q{qid}: segment_reduce launched {launches} times (cold run: "
+            f"{None if calls is None else len(calls)} calls) for {pages} "
+            "aggregated pages (want one per page)")
+    emit({"phase": f"q{qid}_sf1", "rows_out": len(res.rows),
+          "matches_oracle": True, "aggregated_pages": pages,
+          "launches": {"segment_reduce": launches},
+          "cold_s": round(cold_s, 3), "warm_s": round(warm_s, 4),
+          "joins": _join_strategies(res),
+          "peak_bytes": res.stats["memory"]["peak_bytes"],
+          "device_peak_bytes": torch.cuda.max_memory_allocated() - sum(
+              t.nbytes for cols, gid, _, _, order in (calls or [])
+              for t in [*cols, gid] + ([] if order is None else [order])),
+          "card": card["nvidia_smi"]})
+    return launches
+
+
+#: window aggregates over orders: four window specifications of
+#: partition o_custkey (frames count apart), so four WindowOperators
+WINDOW_AGGS_SQL = """
+select count(*), sum(rn), sum(rk), sum(run), sum(mv), sum(mx), sum(prv) from (
+  select row_number() over (partition by o_custkey
+                            order by o_orderdate, o_orderkey) rn,
+         rank() over (partition by o_custkey order by o_orderpriority) rk,
+         sum(o_totalprice) over (partition by o_custkey
+                                 order by o_orderdate, o_orderkey) run,
+         sum(o_totalprice) over (partition by o_custkey
+                                 order by o_orderdate, o_orderkey
+                                 rows between 2 preceding and current row) mv,
+         max(o_totalprice) over (partition by o_custkey
+                                 order by o_orderdate, o_orderkey
+                                 rows between 3 preceding and 1 following) mx,
+         lag(o_orderkey) over (partition by o_custkey
+                               order by o_orderdate, o_orderkey) prv
+  from orders)"""
+#: grouped top-N: the filter on row_number plans to a TopNRanking node
+GROUPED_TOPN_SQL = """
+select count(*), sum(o_orderkey), sum(rn) from (
+  select o_orderkey, row_number() over (partition by o_custkey
+         order by o_totalprice desc, o_orderkey) rn from orders)
+where rn <= 3"""
+
+
+def orders_columns(schema: str):
+    """o_orderkey, o_custkey, o_orderdate, the rank of o_orderpriority
+    and o_totalprice (unscaled cents) of every order, read through the
+    torch engine's TpchConnector page source on the host."""
+    import numpy as np
+
+    from trino_tpu_torch.connectors.tpch import TpchConnector
+
+    conn = TpchConnector(page_rows=1 << 16)
+    meta = conn.metadata()
+    handle = meta.get_table_handle(schema, "orders")
+    by_name = {c.name: c for c in meta.get_columns(handle)}
+    names = ["o_orderkey", "o_custkey", "o_orderdate", "o_orderpriority",
+             "o_totalprice"]
+    parts = {n: [] for n in names}
+    for split in conn.split_manager().get_splits(handle, 8):
+        src = conn.page_source(split, [by_name[n] for n in names])
+        while not src.is_finished():
+            page = src.get_next_page()
+            if page is None:
+                continue
+            for n, b in zip(names, page.blocks):
+                if b.nulls is not None and bool(np.asarray(b.nulls).any()):
+                    raise AssertionError(f"{n} holds NULLs")
+                if n == "o_orderpriority":
+                    values = b.dictionary.values
+                    order = {v: i for i, v in enumerate(sorted(set(values)))}
+                    lut = np.asarray([order[v] for v in values], np.int64)
+                    parts[n].append(lut[b.data])
+                else:
+                    parts[n].append(np.asarray(b.data, dtype=np.int64))
+        src.close()
+    return [np.concatenate(parts[n]) for n in names]
+
+
+def _partition_starts(part):
+    """Index of each sorted row's partition start, and its partition end."""
+    import numpy as np
+
+    n = len(part)
+    idx = np.arange(n)
+    start = np.r_[True, part[1:] != part[:-1]]
+    end = np.r_[part[1:] != part[:-1], True]
+    pstart = np.maximum.accumulate(np.where(start, idx, 0))
+    pend = np.minimum.accumulate(np.where(end, idx, n)[::-1])[::-1]
+    return idx, pstart, pend
+
+
+def window_oracle(schema: str):
+    """The rows of WINDOW_AGGS_SQL and GROUPED_TOPN_SQL from numpy alone
+    (lexsort, cumsum): decimals as unscaled integers."""
+    import numpy as np
+
+    key, cust, date, prio, price = orders_columns(schema)
+    o = np.lexsort((key, date, cust))
+    k, p = key[o], price[o]
+    idx, pstart, pend = _partition_starts(cust[o])
+    rn = idx - pstart + 1
+    csum = np.cumsum(p)
+    before = lambda lo: np.where(lo > 0, csum[np.maximum(lo - 1, 0)], 0)
+    run = csum - before(pstart)
+    mv = csum - before(np.maximum(idx - 2, pstart))
+    mx = p.copy()
+    for s in (1, 2, 3):
+        ok = idx - s >= pstart
+        mx = np.where(ok, np.maximum(mx, p[np.maximum(idx - s, 0)]), mx)
+    ok = idx + 1 <= pend
+    mx = np.where(ok, np.maximum(mx, p[np.minimum(idx + 1, len(p) - 1)]),
+                  mx)
+    has_prev = idx - 1 >= pstart
+    prv = int(k[np.maximum(idx - 1, 0)][has_prev].sum())
+    o2 = np.lexsort((prio, cust))
+    pr = prio[o2]
+    idx2, pstart2, _ = _partition_starts(cust[o2])
+    rstart = (idx2 == pstart2) | np.r_[True, pr[1:] != pr[:-1]]
+    rk = np.maximum.accumulate(np.where(rstart, idx2, 0)) - pstart2 + 1
+    aggs = (len(key), int(rn.sum()), int(rk.sum()), int(run.sum()),
+            int(mv.sum()), int(mx.sum()), prv)
+    o3 = np.lexsort((key, -price, cust))
+    idx3, pstart3, _ = _partition_starts(cust[o3])
+    rn3 = idx3 - pstart3 + 1
+    keep = rn3 <= 3
+    topn = (int(keep.sum()), int(key[o3][keep].sum()), int(rn3[keep].sum()))
+    return {"window_aggs": aggs, "grouped_topn": topn}
+
+
+def _unscaled(row, types):
+    """A result row with decimals as unscaled integers."""
+    from decimal import Decimal
+
+    return tuple(int(v.scaleb(t.scale)) if isinstance(v, Decimal) else v
+                 for v, t in zip(row, types))
+
+
+def window_phase(card, schema: str = "sf1", device: str = "cuda"):
+    """The two window queries over orders, each against the numpy oracle,
+    exactly; the window aggregates must have run WindowOperators and the
+    top-N query a GroupedTopNOperator. Returns the warm runs' launches."""
+    import torch
+
+    from trino_tpu_torch.ops import kernels
+
+    t0 = time.perf_counter()
+    want = window_oracle(schema)
+    oracle_s = time.perf_counter() - t0
+    runner = _sf1_runner(device, schema)
+    launches = 0
+    for name, sql, op_name in (
+            ("window_aggs", WINDOW_AGGS_SQL, "WindowOperator"),
+            ("grouped_topn", GROUPED_TOPN_SQL, "GroupedTopNOperator")):
+        t0 = time.perf_counter()
+        runner.execute(sql)
+        cold_s = time.perf_counter() - t0
+        if device == "cuda":
+            torch.cuda.synchronize()
+        kernels.segment_reduce.launches = 0
+        t0 = time.perf_counter()
+        res = runner.execute(sql)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        launches += kernels.segment_reduce.launches
+        got = _unscaled(res.rows[0], res.types)
+        if len(res.rows) != 1 or got != want[name]:
+            raise AssertionError(f"{name}: engine {res.rows} "
+                                 f"oracle {want[name]}")
+        ops = [op["name"] for op in res.stats["operators"]]
+        if op_name not in ops or (name == "grouped_topn"
+                                  and "WindowOperator" in ops):
+            raise AssertionError(f"{name}: operators {ops}")
+        emit({"phase": "window_sf1", "query": name, "schema": schema,
+              "rows": list(got), "matches_oracle": True,
+              "operators": {o: ops.count(o) for o in (
+                  "WindowOperator", "GroupedTopNOperator")},
+              "cold_s": round(cold_s, 3), "warm_s": round(warm_s, 4),
+              "oracle_s": round(oracle_s, 3),
+              "card": card["nvidia_smi"]})
+    return launches
+
+
+#: one statement each of DISTINCT, UNION ALL, INTERSECT, EXCEPT, UNNEST
+#: and a scalar subquery, at tiny
+SURFACE_SQL = [
+    "select distinct l_returnflag, l_linestatus, l_shipmode from lineitem",
+    "select n_name from nation union all select r_name from region",
+    "select o_custkey from orders intersect select c_custkey from customer "
+    "where c_mktsegment = 'BUILDING'",
+    "select s_nationkey from supplier except select c_nationkey from "
+    "customer where c_acctbal > 9000",
+    "select n_name, w, o from nation cross join unnest(split(n_name, ' ')) "
+    "with ordinality t(w, o)",
+    "select c_custkey, c_acctbal from customer where c_acctbal > "
+    "(select avg(c_acctbal) from customer) and c_custkey < 400",
+]
+
+
+def _same_rows(got, want, what: str):
+    """The tests' comparison over rows as sorted lists: same types,
+    decimals and integers exactly, DOUBLE within a relative 1e-12, NaN
+    equal to NaN."""
+    import math
+
+    got, want = sorted(got, key=repr), sorted(want, key=repr)
+    if len(got) != len(want):
+        raise AssertionError(f"{what}: {len(got)} rows, want {len(want)}")
+    for rg, rw in zip(got, want):
+        for x, y in zip(rg, rw):
+            if type(x) is not type(y):
+                raise AssertionError(f"{what}: {rg} vs {rw}")
+            if isinstance(x, float) and math.isnan(y):
+                ok = math.isnan(x)
+            elif isinstance(x, float):
+                ok = math.isclose(x, y, rel_tol=1e-12)
+            else:
+                ok = x == y
+            if not ok:
+                raise AssertionError(f"{what}: {rg} vs {rw}")
+
+
+def sql_surface_phase(card):
+    """The 22 TPC-H queries at tiny (q19 at micro: its join expands to
+    ~100 mostly dead pages at tiny, a minute on the CPU path), the 32
+    TPC-DS queries at micro and SURFACE_SQL on the card and on the
+    engine's own CPU path; the rows must agree (as sorted lists).
+    Returns the card runs' launches."""
+    import torch
+
+    from trino_tpu_torch import LocalQueryRunner
+    from trino_tpu_torch.connectors.tpcds import TpcdsConnector
+    from trino_tpu_torch.connectors.tpch import TpchConnector
+    from trino_tpu_torch.ops import kernels
+    from trino_tpu_torch.resources.tpcds_queries import TPCDS_QUERIES
+    from trino_tpu_torch.resources.tpch_queries import TPCH_QUERIES
+    from trino_tpu_torch.sql.analyzer import Session
+
+    tiny = sorted(set(TPCH_QUERIES) - {19})
+    suites = [("tpch", "tiny", TpchConnector,
+               [(f"tpch_q{q}", TPCH_QUERIES[q]) for q in tiny]
+               + [(f"surface_{i}", q) for i, q in enumerate(SURFACE_SQL)]),
+              ("tpch", "micro", TpchConnector,
+               [("tpch_q19", TPCH_QUERIES[19])]),
+              ("tpcds", "micro", lambda: TpcdsConnector(page_rows=8192),
+               [(f"tpcds_q{q}", TPCDS_QUERIES[q])
+                for q in sorted(TPCDS_QUERIES)])]
+    launches = 0
+    card_s = cpu_s = 0.0
+    checked = []
+    for catalog, schema, make, queries in suites:
+        runners = {dev: LocalQueryRunner(
+            {catalog: make()}, Session(catalog=catalog, schema=schema),
+            device=dev) for dev in ("cuda", "cpu")}
+        for name, sql in queries:
+            kernels.segment_reduce.launches = 0
+            t0 = time.perf_counter()
+            got = runners["cuda"].execute(sql).rows
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            launches += kernels.segment_reduce.launches
+            want = runners["cpu"].execute(sql).rows
+            cpu_s += time.perf_counter() - t1
+            card_s += t1 - t0
+            _same_rows(got, want, name)
+            checked.append(name)
+    emit({"phase": "sql_surface", "statements": len(checked),
+          "equal_to_cpu_path": True, "card_s": round(card_s, 3),
+          "cpu_s": round(cpu_s, 3), "launches": launches,
+          "card": card["nvidia_smi"]})
+    return launches
+
+
 def _bound_ms(cols, n: int, num_segments: int, with_order: bool):
     """(bound ms, bound_by, bytes) of one ``segment_reduce_columns`` call:
     gid (and order) read once per row, each column read once per row and
@@ -569,12 +912,13 @@ def _bound_ms(cols, n: int, num_segments: int, with_order: bool):
         "bytes" if bytes_ms >= ops_ms else "operations", bytes_
 
 
-def q3_columns_phase(calls):
-    """Every ``segment_reduce_columns`` call of q3's run, on the inputs the
-    run gave it, against its plain version (ints exactly); then the
-    largest page call and the last call (the merge of the page partials)
-    timed beside the plain version and ``index_add_`` over the unsorted
-    gids."""
+def columns_replay_phase(phase: str, calls, page_by: str):
+    """Every ``segment_reduce_columns`` call of a query's cold run, on the
+    inputs the run gave it, against its plain version (ints exactly);
+    then one page call (the one with the most lanes, or with the most
+    live rows: ``page_by`` "n" or "live") and the merge (the call with
+    the most groups) timed beside the plain version and ``index_add_``
+    over the unsorted gids."""
     import torch
 
     from trino_tpu_torch.ops import kernels
@@ -587,16 +931,18 @@ def q3_columns_phase(calls):
         shapes.append({"n": gid.shape[0], "live": int(live.sum()),
                        "groups": int(gid[live].max()) + 1
                        if bool(live.any()) else 0})
-    emit({"phase": "q3_columns", "calls": len(calls),
+    emit({"phase": phase, "calls": len(calls),
           "columns": sorted({len(c[0]) for c in calls}),
           "dtypes": sorted({str(col.dtype).removeprefix("torch.")
                             for c in calls for col in c[0]}),
           "kinds": sorted({k for c in calls for k in c[3]}),
           "order": all(c[4] is not None for c in calls),
           "shapes": shapes, "max_abs_err": max(errs)})
-    largest = max(range(len(calls) - 1), key=lambda i: shapes[i]["n"])
+    merge = max(range(len(calls)), key=lambda i: shapes[i]["groups"])
+    largest = max((i for i in range(len(calls)) if i != merge),
+                  key=lambda i: shapes[i][page_by])
     timed = {}
-    for case, i in (("page", largest), ("merge", len(calls) - 1)):
+    for case, i in (("page", largest), ("merge", merge)):
         cols, gid, ns, kinds, order = calls[i]
         n = gid.shape[0]
         unsorted = torch.empty_like(gid)
@@ -618,7 +964,7 @@ def q3_columns_phase(calls):
         bound_ms, bound_by, bytes_ = _bound_ms(cols, n, ns,
                                                order is not None)
         timed[case] = {
-            **shapes[i], "call": i, "bytes": bytes_,
+            **shapes[i], "call": i, "columns": len(cols), "bytes": bytes_,
             "max_abs_err": errs[i], "bound_ms": bound_ms,
             "bound_by": bound_by, "kernel_ms": time_ms(kernel),
             "plain_ms": time_ms(
@@ -626,7 +972,7 @@ def q3_columns_phase(calls):
                     cols, gid, ns, kinds, order)),
             "library_ms": time_ms(library),
             "device_ms": kernel_device_ms(kernel)["total"]}
-        emit({"phase": "q3_columns", "case": case, **timed[case]})
+        emit({"phase": phase, "case": case, **timed[case]})
     return timed
 
 
@@ -649,8 +995,16 @@ def main() -> int:
     q3_launches, q3_calls = q3_phase(card)
     launches = {"q1": q1_launches["segment_reduce"],
                 "q3": q3_launches["segment_reduce"]}
-    q3_shapes = q3_columns_phase(q3_calls)
+    q3_shapes = columns_replay_phase("q3_columns", q3_calls, "n")
     del q3_calls
+    launches["q6"] = tpch_sf1_phase(card, 6)
+    launches["q13"] = tpch_sf1_phase(card, 13)
+    q18_calls = []
+    launches["q18"] = tpch_sf1_phase(card, 18, q18_calls)
+    q18_shapes = columns_replay_phase("q18_columns", q18_calls, "live")
+    del q18_calls
+    launches["window"] = window_phase(card)
+    launches["sql_surface"] = sql_surface_phase(card)
     bytes_ms = main_shape["bytes"] / HBM_BYTES_PER_S * 1e3
     ops_ms = main_shape["n"] * STATES_PER_PAGE / VECTOR_OPS_PER_S * 1e3
     emit({"kernels": [{
@@ -666,10 +1020,11 @@ def main() -> int:
         "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "library_ms": main_shape["library_ms"],
-        "q3_shapes": {case: {k: t[k] for k in (
-            "n", "groups", "max_abs_err", "kernel_ms", "plain_ms",
-            "bound_ms", "bound_by", "library_ms")}
-            for case, t in q3_shapes.items()},
+        **{f"{q}_shapes": {case: {k: t[k] for k in (
+            "n", "groups", "columns", "max_abs_err", "kernel_ms",
+            "plain_ms", "device_ms", "bound_ms", "bound_by", "library_ms")}
+            for case, t in shapes.items()}
+           for q, shapes in (("q3", q3_shapes), ("q18", q18_shapes))},
     }]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": card["kind"],
                                  "count": card["count"]}})

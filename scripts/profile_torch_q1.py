@@ -3,12 +3,14 @@
 
     python3 scripts/profile_torch_q1.py [QUERY]
 
-Runs TPC-H query QUERY (default 1; q3 is the join slice) at SF1 on the
-CUDA card once to warm up, then three timed runs, and prints JSON lines:
+Runs TPC-H query QUERY (default 1; 3 is the join slice, 18 the
+large-group aggregation behind a semijoin, any of the 22 is accepted) at
+SF1 on the CUDA card once to warm up, then three timed runs, and prints
+JSON lines:
 
 - ``generate``: host time to generate the columns of the query's first
-  scan alone (lineitem for q1 and q3; the tpch connector is a numpy
-  generator on the host);
+  scan alone (the leftmost scan of the plan: lineitem for q1, q3 and
+  q18; the tpch connector is a numpy generator on the host);
 - ``run``: each timed run's wall (host clock, ending in a device sync);
 - ``operators``: per-operator host wall of one run (the driver's stats;
   device work is asynchronous, so an operator's wall is its enqueue time

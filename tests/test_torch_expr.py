@@ -37,7 +37,6 @@ from trino_tpu_torch.planner import plan as pplan
 from trino_tpu_torch.planner.symbols import to_input_refs as p_to_input_refs
 from trino_tpu_torch.sql.analyzer import Session as PSession
 from trino_tpu_torch.sql.parser import parse_statement as p_parse
-from trino_tpu_torch.types import TrinoError
 
 torch.set_num_threads(2)
 
@@ -211,18 +210,31 @@ def test_expression_breadth_equal_jax():
 
 @pytest.mark.parametrize("name", ["divide", "abs", "round", "year"])
 def test_unported_functions_raise_not_supported(name):
-    args = [pir.InputRef(PT.DOUBLE, 0)] * (2 if name == "divide" else 1)
+    """These four bodies raised NOT_SUPPORTED until the whole registry
+    was ported; now each computes the JAX engine's lanes (every body is
+    held against the reference in test_torch_functions.py)."""
+    jargs = [jir.InputRef(JT.DOUBLE, 0)] * (2 if name == "divide" else 1)
     if name == "year":
-        args = [pir.InputRef(PT.DATE, 1)]
-    t = PF.get_function(name).resolve([a.type for a in args])
-    proc = pcompiler.PageProcessor([PT.DOUBLE, PT.DATE],
-                                   [pir.Call(t, name, tuple(args))])
-    page = interop.device_page_from_numpy(
-        [PT.DOUBLE, PT.DATE], [np.ones(16), np.zeros(16, np.int32)],
-        [np.zeros(16, bool)] * 2, np.ones(16, bool), [None, None], "cpu")
-    with pytest.raises(TrinoError) as e:
-        proc.process(page)
-    assert e.value.code == "NOT_SUPPORTED"
+        jargs = [jir.InputRef(JT.DATE, 1)]
+    pargs = [pir.InputRef(PT.parse_type(a.type.name), a.channel)
+             for a in jargs]
+    jt = JF.get_function(name).resolve([a.type for a in jargs])
+    pt = PF.get_function(name).resolve([a.type for a in pargs])
+    rng = np.random.default_rng(3)
+    cols = [rng.normal(0, 10, 16), rng.integers(-9000, 9000, 16)
+            .astype(np.int32)]
+    nulls = [np.zeros(16, bool)] * 2
+    jpage = jblock.DevicePage([JT.DOUBLE, JT.DATE],
+                              [jnp.asarray(c) for c in cols],
+                              [jnp.asarray(n) for n in nulls],
+                              jnp.ones(16, bool), [None, None])
+    jout = jcompiler.PageProcessor(
+        [JT.DOUBLE, JT.DATE], [jir.Call(jt, name, tuple(jargs))]).process(
+        jpage)
+    pout = pcompiler.PageProcessor(
+        [PT.DOUBLE, PT.DATE], [pir.Call(pt, name, tuple(pargs))]).process(
+        _to_port(jpage))
+    _assert_same_lanes(jout, pout)
 
 
 def test_registry_resolves_like_jax():

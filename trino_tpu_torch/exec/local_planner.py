@@ -4,11 +4,14 @@ Reference analog: ``sql/planner/LocalExecutionPlanner.java``: the visitor
 that turns a plan fragment into DriverFactories, fixing the physical
 channel layout of every pipeline and compiling expressions.
 
-The torch engine plans TableScan (with dynamic filters), Values, Filter,
-Project, Aggregation, Join (sorted-index and matmul strategies), cross
-join, Sort, TopN, Limit/Offset and Output. Every other node raises
-NOT_SUPPORTED: set operations, EnforceSingleRow, windows, unnest,
-writers and remote sources are not ported yet.
+The torch engine plans every node of a one-device query: TableScan (with
+dynamic filters), Values, Filter, Project, Unnest, Aggregation, Distinct,
+Join (sorted-index and matmul strategies), cross join, the set operations
+(UNION [ALL], INTERSECT, EXCEPT), EnforceSingleRow (scalar subqueries),
+Sort, TopN, TopNRanking (grouped top-N), Window, Limit/Offset and Output.
+Table writers and remote sources (distribution) raise NOT_SUPPORTED.
+Union inputs and join build sides run as pipelines before their
+consumers, in list order, as in the JAX engine.
 """
 
 from __future__ import annotations
@@ -23,17 +26,19 @@ from ..expr.ir import Call, InputRef, Literal, RowExpression
 from ..ops.aggregation import AggCall, HashAggregationOperator
 from ..ops.join import HashBuilderOperator, JoinBridge, LookupJoinOperator
 from ..ops.matmul_join import MatmulJoinOperator
-from ..ops.operator import (FilterProjectOperator, LimitOperator,
-                            OffsetOperator, Operator,
+from ..ops.operator import (DeferredPagesSourceOperator,
+                            EnforceSingleRowOperator, FilterProjectOperator,
+                            LimitOperator, OffsetOperator, Operator,
                             OutputCollectorOperator, TableScanOperator,
                             ValuesOperator)
 from ..ops.sort import OrderByOperator, TopNOperator
 from ..ops.sortkeys import SortKey
 from ..planner.logical_planner import Metadata
-from ..planner.plan import (AggregationNode, CrossJoinNode, FilterNode,
-                            JoinNode, LimitNode, OutputNode, PlanNode,
-                            ProjectNode, SortNode, TableScanNode, TopNNode,
-                            ValuesNode)
+from ..planner.plan import (AggregationNode, CrossJoinNode, DistinctNode,
+                            EnforceSingleRowNode, ExceptNode, FilterNode,
+                            IntersectNode, JoinNode, LimitNode, OutputNode,
+                            PlanNode, ProjectNode, SortNode, TableScanNode,
+                            TopNNode, UnionNode, ValuesNode)
 from ..planner.symbols import Symbol, to_input_refs
 from ..types import TrinoError
 
@@ -177,6 +182,24 @@ class LocalExecutionPlanner:
         new_layout = {s.name: i for i, (s, _) in enumerate(node.assignments)}
         return ops, new_layout, [s.type for s, _ in node.assignments]
 
+    def _v_UnnestNode(self, node):
+        from ..ops.unnest import UnnestOperator
+
+        ops, layout, types_ = self.visit(node.source)
+        arr_chans = [layout[s.name] for s in node.array_symbols]
+        el_types = [s.type for s in node.element_symbols]
+        ops.append(UnnestOperator(types_, arr_chans, el_types,
+                                  node.ordinality_symbol is not None))
+        out_layout = dict(layout)
+        out_types = list(types_)
+        extra = list(node.element_symbols)
+        if node.ordinality_symbol is not None:
+            extra.append(node.ordinality_symbol)
+        for s in extra:
+            out_layout[s.name] = len(out_types)
+            out_types.append(s.type)
+        return ops, out_layout, out_types
+
     def _v_JoinNode(self, node: JoinNode):
         return self._plan_join(node.join_type, node.left, node.right,
                                node.criteria, node.filter_expr,
@@ -312,6 +335,16 @@ class LocalExecutionPlanner:
                 out_types.append(out_sym.type)
         return ops, new_layout, out_types
 
+    def _v_DistinctNode(self, node: DistinctNode):
+        ops, layout, types_ = self.visit(node.source)
+        order = sorted(layout.items(), key=lambda kv: kv[1])
+        ops.append(HashAggregationOperator(
+            types_, [ch for _, ch in order], [], self.device,
+            memory_context=self._mem_ctx("distinct"),
+            hash_grouping=self.hash_grouping))
+        new_layout = {name: i for i, (name, _) in enumerate(order)}
+        return ops, new_layout, types_
+
     def _v_SortNode(self, node: SortNode):
         ops, layout, types_ = self.visit(node.source)
         keys = _sort_keys(node.orderings, layout)
@@ -332,6 +365,112 @@ class LocalExecutionPlanner:
         if node.count is not None:
             ops.append(LimitOperator(node.count))
         return ops, layout, types_
+
+    def _v_EnforceSingleRowNode(self, node: EnforceSingleRowNode):
+        ops, layout, types_ = self.visit(node.source)
+        ops.append(EnforceSingleRowOperator(types_, self.device))
+        return ops, layout, types_
+
+    def _v_UnionNode(self, node: UnionNode):
+        collectors = []
+        for child in node.inputs:
+            cops, clayout, ctypes = self.visit(child)
+            # project to union symbol order
+            projections = [InputRef(s.type, clayout[cs.name])
+                           for s, cs in zip(node.symbols,
+                                            child.output_symbols)]
+            cops.append(self._fp_operator(ctypes, projections))
+            sink = OutputCollectorOperator()
+            cops.append(sink)
+            self.pipelines.append(PhysicalPipeline(cops))
+            collectors.append(sink)
+        types_ = [s.type for s in node.symbols]
+
+        def union_pages(cs=collectors, types_=types_):
+            pages = [p for c in cs for p in c.pages]
+            if not pages:
+                return []
+            if any(t.is_string for t in types_):
+                # unify dictionary pools across children (Page.concat
+                # re-encodes into the first pool)
+                return [Page.concat(pages)]
+            return pages
+
+        source = DeferredPagesSourceOperator(union_pages, self.device)
+        layout = {s.name: i for i, s in enumerate(node.symbols)}
+        return [source], layout, types_
+
+    def _v_TopNRankingNode(self, node):
+        from ..ops.grouped_topn import GroupedTopNOperator
+
+        ops, layout, types_ = self.visit(node.source)
+        pchans = [layout[s.name] for s in node.partition_by]
+        keys = _sort_keys(node.orderings, layout)
+        ops.append(GroupedTopNOperator(types_, pchans, keys,
+                                       node.ranking, node.max_rank,
+                                       step=node.step))
+        if node.step == "partial":
+            return ops, layout, list(types_)
+        new_layout = dict(layout)
+        new_layout[node.rank_symbol.name] = len(types_)
+        return ops, new_layout, list(types_) + [T.BIGINT]
+
+    def _v_WindowNode(self, node):
+        from ..ops.window import WindowCall, WindowOperator
+
+        ops, layout, types_ = self.visit(node.source)
+        pchans = [layout[s.name] for s in node.partition_by]
+        keys = _sort_keys(node.orderings, layout)
+        calls = []
+        for out_sym, f in node.functions:
+            arg_ch = layout[f.argument.name] if f.argument is not None \
+                else None
+            calls.append(WindowCall(
+                f.function, arg_ch,
+                f.argument.type if f.argument is not None else None,
+                out_sym.type, f.frame_mode, f.offset,
+                f.frame_start, f.frame_end))
+        ops.append(WindowOperator(types_, pchans, keys, calls))
+        new_layout = dict(layout)
+        out_types = list(types_)
+        for j, (out_sym, _f) in enumerate(node.functions):
+            new_layout[out_sym.name] = len(types_) + j
+            out_types.append(out_sym.type)
+        return ops, new_layout, out_types
+
+    def _v_IntersectNode(self, node: IntersectNode):
+        return self._set_semantics_join(node, "semi")
+
+    def _v_ExceptNode(self, node: ExceptNode):
+        return self._set_semantics_join(node, "anti")
+
+    def _set_semantics_join(self, node, join_type: str):
+        """INTERSECT/EXCEPT = Distinct(left) semi/anti-join right on all
+        columns. As in the JAX engine, the join treats NULL keys as
+        non-matching where SQL set operations treat NULLs as equal, so
+        rows holding NULL differ from SQL there (in both engines)."""
+        left, right = node.inputs
+        bops, blayout, btypes = self.visit(right)
+        pops, playout, ptypes = self.visit(left)
+        # align probe/build channel order to symbol order
+        bchans = [blayout[s.name] for s in right.output_symbols]
+        bridge = JoinBridge()
+        bops.append(HashBuilderOperator(
+            btypes, bchans, bridge, self.device,
+            memory_context=self._mem_ctx("setop-build")))
+        self.pipelines.append(PhysicalPipeline(bops))
+        pchans = [playout[s.name] for s in left.output_symbols]
+        pops.append(LookupJoinOperator(
+            ptypes, pchans, bridge, join_type,
+            max_lanes=self.join_max_lanes))
+        # distinct over the probe columns; output channels follow pchans
+        # order, i.e. channel j <-> left.output_symbols[j] <-> symbols[j]
+        pops.append(HashAggregationOperator(
+            ptypes, pchans, [], self.device,
+            memory_context=self._mem_ctx("setop-distinct"),
+            hash_grouping=self.hash_grouping))
+        layout = {s.name: j for j, s in enumerate(node.symbols)}
+        return pops, layout, [ptypes[ch] for ch in pchans]
 
 
 def _sort_keys(orderings, layout) -> List[SortKey]:

@@ -421,6 +421,9 @@ class PageProcessor:
                 raws.append(r)
                 nulls.append(n)
             out = kern(raws, arg_types, rt)
+            if not isinstance(out, torch.Tensor):   # pi(), e(), ...
+                out = torch.tensor(out, dtype=storage_dtype(rt),
+                                   device=env["device"])
             null = None
             for n in nulls:
                 if n is not None:

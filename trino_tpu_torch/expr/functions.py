@@ -19,22 +19,25 @@ Each function carries:
 Null propagation is the compiler's job (RETURN_NULL_ON_NULL default);
 kernels see raw lanes and may compute garbage in null lanes (masked out).
 
-The registry and every ``resolve`` are the JAX engine's
-(``trino_tpu/expr/functions.py``), so the analyzer types every function
-the same way. The torch engine has device bodies for the functions TPC-H
-q1 evaluates: ``add``, ``subtract`` (numbers, dates and timestamps with
-intervals), ``multiply`` and the six comparisons, with their helpers
-``rescale``, ``div_round_half_up``, ``coerce_raw`` and the civil-calendar
-math. Every other device body raises NOT_SUPPORTED when called
-(``_unported``); the host string/array transforms are complete.
+The registry, every ``resolve`` and every device body are the JAX
+engine's (``trino_tpu/expr/functions.py``), so the analyzer types every
+function the same way and each body computes the same lanes, but for
+one repair: SQL mod by a negative divisor (``_mod_kernel``).
 
 torch promotes a 0-d tensor into a dimensioned one's dtype where JAX
 (with x64) promotes to the wider type, so kernels cast explicitly
 (``_promote``); floor division is ``torch.div(..., rounding_mode="floor")``.
+Integer division and modulus replace a zero divisor by 1 first, dead and
+NULL lanes included (torch raises on the CPU and returns garbage on
+CUDA); ``x / 0`` is thus ``x``, as in the JAX engine. Shifts, ``sign``
+and the uint64 sketch hashes spell out the JAX semantics that torch's
+operators do not share (shift counts past 63, the sign of NaN and -0.0,
+logical right shifts).
 """
 
 from __future__ import annotations
 
+import math
 import re
 from dataclasses import dataclass
 from typing import Callable, Optional
@@ -43,7 +46,7 @@ import torch
 
 from .. import types as T
 from ..block import storage_dtype
-from ..types import TrinoError, TypeError_, is_numeric
+from ..types import TypeError_, is_numeric
 
 
 @dataclass
@@ -70,15 +73,6 @@ def get_function(name: str) -> ScalarFunction:
     return f
 
 
-def _unported(name: str):
-    """The device body of a function the torch engine has not ported."""
-    def kernel(raws, arg_types, ret_type):
-        raise TrinoError(f"function {name} has no torch kernel yet",
-                         "NOT_SUPPORTED")
-
-    return kernel
-
-
 # ---------------------------------------------------------------------------
 # helpers
 
@@ -88,6 +82,26 @@ _DAY_US = 86_400_000_000
 
 def _floordiv(x, y):
     return torch.div(x, y, rounding_mode="floor")
+
+
+def _nonzero(b):
+    """``b`` with 0 replaced by 1: the divisor the JAX engine uses, so
+    ``x / 0`` is ``x`` on every lane (dead lanes hold 0 too)."""
+    return torch.where(b == 0, torch.ones_like(b), b)
+
+
+def _float_to_int64(x):
+    """float -> int64 as XLA converts: toward zero, saturating at the
+    int64 range, NaN to 0 (torch leaves these lanes undefined)."""
+    big = 2.0 ** 63
+    out = torch.where(torch.isnan(x) | (x >= big) | (x < -big),
+                      torch.zeros_like(x), x).to(torch.int64)
+    out = torch.where(x >= big, torch.full_like(out, 2 ** 63 - 1), out)
+    return torch.where(x < -big, torch.full_like(out, -2 ** 63), out)
+
+
+def _pow10_lut(device) -> torch.Tensor:
+    return torch.tensor(_POW10, dtype=torch.int64, device=device)
 
 
 def _promote(a, b):
@@ -296,7 +310,23 @@ def _resolve_div(args):
     raise TypeError_(f"cannot divide {a} and {b}")
 
 
-register(ScalarFunction("divide", _resolve_div, _unported("divide")))
+def _div_kernel(raws, arg_types, ret_type):
+    a, b = raws
+    ta, tb = arg_types
+    if _is_float(ret_type):
+        return (_to_float(a, ta) / _to_float(b, tb)).to(
+            storage_dtype(ret_type))
+    if ret_type.is_decimal:
+        da, db = _as_decimal(ta), _as_decimal(tb)
+        # rescaleFactor = resultScale - dividendScale + divisorScale
+        k = ret_type.scale - da.scale + db.scale
+        return div_round_half_up(rescale(a.to(torch.int64), k),
+                                 b.to(torch.int64))
+    dt = storage_dtype(ret_type)
+    return _floordiv(a.to(dt), _nonzero(b).to(dt))
+
+
+register(ScalarFunction("divide", _resolve_div, _div_kernel))
 
 
 def _resolve_mod(args):
@@ -315,8 +345,28 @@ def _resolve_mod(args):
     raise TypeError_(f"cannot mod {a} and {b}")
 
 
-register(ScalarFunction("modulus", _resolve_mod, _unported("modulus")))
-register(ScalarFunction("mod", _resolve_mod, _unported("mod")))
+def _mod_kernel(raws, arg_types, ret_type):
+    a, b = raws
+    ta, tb = arg_types
+    if _is_float(ret_type):
+        return torch.fmod(_to_float(a, ta), _to_float(b, tb)).to(
+            storage_dtype(ret_type))
+    # SQL mod takes the dividend's sign (truncated remainder, fmod), for
+    # either sign of the divisor. The JAX engine computes
+    # a - sign(a) * (|a| // |b|) * b, which is that only for b > 0 (for
+    # b < 0 it gives a + |b| * (|a| // |b|)); x mod 0 is 0 in both.
+    if ret_type.is_decimal:
+        da, db = _as_decimal(ta), _as_decimal(tb)
+        s = ret_type.scale
+        ra = rescale(a.to(torch.int64), s - da.scale)
+        rb = rescale(b.to(torch.int64), s - db.scale)
+        return torch.fmod(ra, _nonzero(rb))
+    # the divisor is cast to the dividend's dtype, as in the JAX engine
+    return torch.fmod(a, _nonzero(b).to(a.dtype)).to(storage_dtype(ret_type))
+
+
+register(ScalarFunction("modulus", _resolve_mod, _mod_kernel))
+register(ScalarFunction("mod", _resolve_mod, _mod_kernel))
 
 
 def _resolve_negate(args):
@@ -327,7 +377,8 @@ def _resolve_negate(args):
     raise TypeError_(f"cannot negate {a}")
 
 
-register(ScalarFunction("negate", _resolve_negate, _unported("negate")))
+register(ScalarFunction("negate", _resolve_negate,
+                        lambda raws, at, rt: -raws[0]))
 
 
 # ---------------------------------------------------------------------------
@@ -379,13 +430,19 @@ def _resolve_unary_double(args):
     raise TypeError_(f"expected numeric, got {a}")
 
 
-register(ScalarFunction("sqrt", _resolve_unary_double, _unported("sqrt")))
-register(ScalarFunction("ln", _resolve_unary_double, _unported("ln")))
-register(ScalarFunction("log10", _resolve_unary_double, _unported("log10")))
-register(ScalarFunction("exp", _resolve_unary_double, _unported("exp")))
-register(ScalarFunction("sin", _resolve_unary_double, _unported("sin")))
-register(ScalarFunction("cos", _resolve_unary_double, _unported("cos")))
-register(ScalarFunction("tan", _resolve_unary_double, _unported("tan")))
+def _unary_double(fn):
+    return lambda raws, at, rt: fn(_to_float(raws[0], at[0]))
+
+
+register(ScalarFunction("sqrt", _resolve_unary_double,
+                        _unary_double(torch.sqrt)))
+register(ScalarFunction("ln", _resolve_unary_double, _unary_double(torch.log)))
+register(ScalarFunction("log10", _resolve_unary_double,
+                        _unary_double(torch.log10)))
+register(ScalarFunction("exp", _resolve_unary_double, _unary_double(torch.exp)))
+register(ScalarFunction("sin", _resolve_unary_double, _unary_double(torch.sin)))
+register(ScalarFunction("cos", _resolve_unary_double, _unary_double(torch.cos)))
+register(ScalarFunction("tan", _resolve_unary_double, _unary_double(torch.tan)))
 
 
 def _resolve_same(args):
@@ -395,18 +452,16 @@ def _resolve_same(args):
     raise TypeError_(f"expected numeric, got {a}")
 
 
-register(ScalarFunction("abs", _resolve_same, _unported("abs")))
+register(ScalarFunction("abs", _resolve_same,
+                        lambda raws, at, rt: torch.abs(raws[0])))
 
 
-def _resolve_power(args):
-    a, b = args
-    if _numeric_pair(a, b):
-        return T.DOUBLE
-    raise TypeError_(f"cannot power {a}, {b}")
+def _binary_double(op):
+    def kernel(raws, arg_types, ret_type):
+        return op(_to_float(raws[0], arg_types[0]),
+                  _to_float(raws[1], arg_types[1]))
 
-
-register(ScalarFunction("power", _resolve_power, _unported("power")))
-register(ScalarFunction("pow", _resolve_power, _unported("pow")))
+    return kernel
 
 
 def _resolve_round(args):
@@ -423,7 +478,31 @@ def _resolve_round(args):
     raise TypeError_(f"cannot round {a}")
 
 
-register(ScalarFunction("round", _resolve_round, _unported("round")))
+def _round_kernel(raws, arg_types, ret_type):
+    a = raws[0]
+    ta = arg_types[0]
+    if _is_float(ta):
+        # SQL rounds half away from zero (not banker's rounding)
+        if len(raws) == 2:
+            # the JAX engine's factor is float64, which widens a REAL
+            f = torch.pow(10.0, raws[1].to(torch.float64))
+            a64 = a.to(torch.float64)
+            return (torch.sign(a64) * torch.floor(torch.abs(a64) * f + 0.5)
+                    / f).to(storage_dtype(ta))
+        return (torch.sign(a) * torch.floor(torch.abs(a) + 0.5)).to(
+            storage_dtype(ta))
+    if ta.is_decimal:
+        if len(raws) == 1:
+            return div_round_half_up(a, torch.tensor(
+                _POW10[ta.scale], dtype=torch.int64, device=a.device))
+        # round(decimal, n): zero out digits beyond scale n (n per lane)
+        k = torch.clamp(ta.scale - raws[1].to(torch.int64), 0, 18)
+        f = _pow10_lut(a.device)[k]
+        return div_round_half_up(a, f) * f
+    return a
+
+
+register(ScalarFunction("round", _resolve_round, _round_kernel))
 
 
 def _resolve_floor_ceil(args):
@@ -435,10 +514,27 @@ def _resolve_floor_ceil(args):
     raise TypeError_(f"cannot floor/ceil {a}")
 
 
-register(ScalarFunction("floor", _resolve_floor_ceil, _unported("floor")))
-register(ScalarFunction("ceil", _resolve_floor_ceil, _unported("ceil")))
-register(ScalarFunction("ceiling", _resolve_floor_ceil,
-                        _unported("ceiling")))
+def _floor_kernel(raws, arg_types, ret_type):
+    a, ta = raws[0], arg_types[0]
+    if ta.is_decimal:
+        return _floordiv(a, _POW10[ta.scale])
+    if _is_float(ta):
+        return torch.floor(a)
+    return a
+
+
+def _ceil_kernel(raws, arg_types, ret_type):
+    a, ta = raws[0], arg_types[0]
+    if ta.is_decimal:
+        return -_floordiv(-a, _POW10[ta.scale])
+    if _is_float(ta):
+        return torch.ceil(a)
+    return a
+
+
+register(ScalarFunction("floor", _resolve_floor_ceil, _floor_kernel))
+register(ScalarFunction("ceil", _resolve_floor_ceil, _ceil_kernel))
+register(ScalarFunction("ceiling", _resolve_floor_ceil, _ceil_kernel))
 
 
 def _resolve_greatest(args):
@@ -451,9 +547,27 @@ def _resolve_greatest(args):
     return t
 
 
+def _minmax_kernel(fn):
+    def kernel(raws, arg_types, ret_type):
+        acc = None
+        for r, t in zip(raws, arg_types):
+            if ret_type.is_decimal:
+                v = rescale(r.to(torch.int64),
+                            ret_type.scale - _as_decimal(t).scale)
+            elif _is_float(ret_type):
+                v = _to_float(r, t)
+            else:
+                v = r.to(storage_dtype(ret_type))
+            acc = v if acc is None else fn(acc, v)
+        return acc
+
+    return kernel
+
+
 register(ScalarFunction("greatest", _resolve_greatest,
-                        _unported("greatest")))
-register(ScalarFunction("least", _resolve_greatest, _unported("least")))
+                        _minmax_kernel(torch.maximum)))
+register(ScalarFunction("least", _resolve_greatest,
+                        _minmax_kernel(torch.minimum)))
 
 
 # ---------------------------------------------------------------------------
@@ -506,13 +620,75 @@ def _resolve_date_part(args):
     raise TypeError_(f"expected date/timestamp, got {a}")
 
 
+def _to_days(raw, t):
+    if t.is_timestamp_tz:
+        from .tz import device_utc_to_wall
+
+        wall = device_utc_to_wall(raw, t.zone)
+        return _floordiv(wall, _DAY_US).to(torch.int32)
+    if t == T.TIMESTAMP:
+        return _floordiv(raw, _DAY_US).to(torch.int32)
+    return raw
+
+
+def _wall_micros(raw, t):
+    """Wall-clock micros-of-day for time-of-day fields (0 for DATE)."""
+    if t.is_timestamp_tz:
+        from .tz import device_utc_to_wall
+
+        return torch.remainder(device_utc_to_wall(raw, t.zone), _DAY_US)
+    if t == T.TIMESTAMP:
+        return torch.remainder(raw, _DAY_US)
+    return torch.zeros_like(raw, dtype=torch.int64)
+
+
+def _jan1(y):
+    one = torch.ones_like(y)
+    return _days_from_civil(y, one, one)
+
+
+def _date_part_kernel(part):
+    def kernel(raws, arg_types, ret_type):
+        if part in ("hour", "minute", "second", "millisecond"):
+            us = _wall_micros(raws[0], arg_types[0])
+            if part == "hour":
+                return _floordiv(us, 3_600_000_000)
+            if part == "minute":
+                return _floordiv(us, 60_000_000) % 60
+            if part == "second":
+                return _floordiv(us, 1_000_000) % 60
+            return _floordiv(us, 1_000) % 1000
+        days = _to_days(raws[0], arg_types[0])
+        y, m, d = _civil_from_days(days)
+        if part == "year":
+            return y
+        if part == "month":
+            return m
+        if part == "day":
+            return d
+        if part == "quarter":
+            return _floordiv(m - 1, 3) + 1
+        d64 = days.to(torch.int64)
+        if part == "day_of_week":  # ISO: Mon=1..Sun=7 (1970-01-01 = Thursday)
+            return (d64 + 3) % 7 + 1
+        if part == "day_of_year":
+            return d64 - _jan1(y) + 1
+        if part == "week":  # ISO week number via the Thursday rule
+            thursday = d64 + (3 - (d64 + 3) % 7)
+            ty, _, _ = _civil_from_days(thursday.to(torch.int32))
+            return _floordiv(thursday - _jan1(ty), 7) + 1
+        raise TypeError_(f"unsupported extract field {part}")
+
+    return kernel
+
+
 for _p in ["year", "month", "day", "quarter", "day_of_week", "day_of_year",
            "week", "hour", "minute", "second", "millisecond"]:
     register(ScalarFunction(f"$extract_{_p}", _resolve_date_part,
-                            _unported(f"$extract_{_p}")))
+                            _date_part_kernel(_p)))
 for _n in ("hour", "minute", "second", "millisecond", "year", "month", "day",
            "quarter"):
-    register(ScalarFunction(_n, _resolve_date_part, _unported(_n)))
+    register(ScalarFunction(_n, _resolve_date_part, _date_part_kernel(_n)))
 
 
 def _resolve_date_diff(args):
@@ -653,12 +829,23 @@ def _resolve_binary_double(args):
     return T.DOUBLE
 
 
-for _n in ("power", "pow", "atan2", "log"):
-    register(ScalarFunction(_n, _resolve_binary_double, _unported(_n)))
+register(ScalarFunction("power", _resolve_binary_double,
+                        _binary_double(torch.pow)))
+register(ScalarFunction("pow", _resolve_binary_double,
+                        _binary_double(torch.pow)))
+register(ScalarFunction("atan2", _resolve_binary_double,
+                        _binary_double(torch.atan2)))
+register(ScalarFunction(
+    "log", _resolve_binary_double,
+    _binary_double(lambda b, x: torch.log(x) / torch.log(b))))
 
-for _n in ("cbrt", "asin", "acos", "atan", "sinh", "cosh", "tanh",
-           "degrees", "radians", "log2"):
-    register(ScalarFunction(_n, _resolve_unary_double, _unported(_n)))
+for _n, _f in [("cbrt", lambda x: torch.sign(x) * torch.abs(x) ** (1 / 3)),
+               ("asin", torch.asin), ("acos", torch.acos),
+               ("atan", torch.atan), ("sinh", torch.sinh),
+               ("cosh", torch.cosh), ("tanh", torch.tanh),
+               ("degrees", torch.rad2deg), ("radians", torch.deg2rad),
+               ("log2", torch.log2)]:
+    register(ScalarFunction(_n, _resolve_unary_double, _unary_double(_f)))
 
 
 def _resolve_sign(args):
@@ -668,7 +855,16 @@ def _resolve_sign(args):
     return T.DOUBLE if a in (T.REAL, T.DOUBLE) else T.BIGINT
 
 
-register(ScalarFunction("sign", _resolve_sign, _unported("sign")))
+def _sign_kernel(raws, arg_types, ret_type):
+    x = raws[0]
+    if arg_types[0] not in (T.REAL, T.DOUBLE):
+        return torch.sign(x.to(torch.int64))
+    # jnp.sign keeps NaN and -0.0; torch.sign maps both to +0.0
+    x = x.to(torch.float64)
+    return torch.where((x == 0) | torch.isnan(x), x, torch.sign(x))
+
+
+register(ScalarFunction("sign", _resolve_sign, _sign_kernel))
 
 
 def _resolve_truncate(args):
@@ -681,8 +877,23 @@ def _resolve_truncate(args):
     return T.DOUBLE if args[0] in (T.REAL, T.DOUBLE) else args[0]
 
 
-register(ScalarFunction("truncate", _resolve_truncate,
-                        _unported("truncate")))
+def _truncate_kernel(raws, arg_types, ret_type):
+    t = arg_types[0]
+    x = raws[0]
+    n = raws[1].to(torch.int64) if len(raws) > 1 \
+        else torch.zeros((), dtype=torch.int64, device=x.device)
+    if t in (T.REAL, T.DOUBLE):
+        f = torch.pow(10.0, n.to(torch.float64))
+        return torch.trunc(x.to(torch.float64) * f) / f
+    if t.is_decimal and t.scale is not None:
+        # zero digits beyond n decimal places, toward zero; negative n
+        # zeroes digits LEFT of the point (f grows past the scale)
+        f = _pow10_lut(x.device)[torch.clamp(t.scale - n, 0, 18)]
+        return torch.sign(x) * _floordiv(torch.abs(x), f) * f
+    return x
+
+
+register(ScalarFunction("truncate", _resolve_truncate, _truncate_kernel))
 
 
 def _resolve_double_predicate(args):
@@ -691,14 +902,19 @@ def _resolve_double_predicate(args):
     return T.BOOLEAN
 
 
-for _n in ("is_nan", "is_finite", "is_infinite"):
-    register(ScalarFunction(_n, _resolve_double_predicate, _unported(_n)))
+for _n, _f in [("is_nan", torch.isnan), ("is_finite", torch.isfinite),
+               ("is_infinite", torch.isinf)]:
+    register(ScalarFunction(
+        _n, _resolve_double_predicate,
+        lambda raws, at, rt, _f=_f: _f(_to_float(raws[0], at[0]))))
 
-for _n in ("pi", "e", "nan", "infinity"):
+# constants: a Python float, which the compiler puts on the page's device
+for _n, _v in [("pi", math.pi), ("e", math.e), ("nan", math.nan),
+               ("infinity", math.inf)]:
     register(ScalarFunction(
         _n, lambda args, _n=_n: T.DOUBLE if not args
         else (_ for _ in ()).throw(TypeError_(f"{_n} takes no args")),
-        _unported(_n)))
+        lambda raws, at, rt, _v=_v: _v))
 
 
 # bitwise (reference: operator/scalar/BitwiseFunctions.java)
@@ -710,9 +926,39 @@ def _resolve_bitwise(args):
     return T.BIGINT
 
 
-for _n in ("bitwise_and", "bitwise_or", "bitwise_xor", "bitwise_not",
-           "bitwise_left_shift", "bitwise_right_shift"):
-    register(ScalarFunction(_n, _resolve_bitwise, _unported(_n)))
+def _shift_kernel(left: bool):
+    """int64 shift with the JAX engine's semantics: a count outside
+    [0, 63] gives 0, and a right shift is logical (on the uint64 bits)."""
+    def kernel(raws, arg_types, ret_type):
+        x = raws[0].to(torch.int64)
+        n = raws[1].to(torch.int64)
+        inside = (n >= 0) & (n < 64)
+        k = torch.where(inside, n, torch.zeros_like(n))
+        if left:
+            out = x << k
+        else:
+            # arithmetic shift, then clear the k sign-filled top bits
+            k1 = torch.clamp(k, min=1)
+            out = torch.where(k == 0, x, (x >> k1) & ~(
+                torch.full_like(x, -1) << (64 - k1)))
+        return torch.where(inside, out, torch.zeros_like(out))
+
+    return kernel
+
+
+for _n, _f in [("bitwise_and", torch.bitwise_and),
+               ("bitwise_or", torch.bitwise_or),
+               ("bitwise_xor", torch.bitwise_xor)]:
+    register(ScalarFunction(
+        _n, _resolve_bitwise,
+        lambda raws, at, rt, _f=_f: _f(raws[0].to(torch.int64),
+                                       raws[1].to(torch.int64))))
+register(ScalarFunction("bitwise_not", _resolve_bitwise,
+                        lambda raws, at, rt: ~raws[0].to(torch.int64)))
+register(ScalarFunction("bitwise_left_shift", _resolve_bitwise,
+                        _shift_kernel(left=True)))
+register(ScalarFunction("bitwise_right_shift", _resolve_bitwise,
+                        _shift_kernel(left=False)))
 
 
 # string breadth (host pool transforms)
@@ -739,6 +985,46 @@ register(ScalarFunction(
 
 # date/time breadth (reference: operator/scalar/DateTimeFunctions.java)
 
+def _trunc_days(days, unit):
+    y, m, d = _civil_from_days(days)
+    one = torch.ones_like(m)
+    if unit == "year":
+        return _days_from_civil(y, one, one)
+    if unit == "quarter":
+        return _days_from_civil(y, _floordiv(m - 1, 3) * 3 + 1, one)
+    if unit == "month":
+        return _days_from_civil(y, m, one)
+    d64 = days.to(torch.int64)
+    if unit == "week":  # ISO week starts Monday
+        return d64 - (d64 + 3) % 7
+    return d64
+
+
+def _trunc_wall_micros(x, unit):
+    if unit in ("year", "quarter", "month", "week", "day"):
+        days = _floordiv(x, _DAY_US).to(torch.int32)
+        return _trunc_days(days, unit).to(torch.int64) * _DAY_US
+    scale = {"hour": 3_600_000_000, "minute": 60_000_000,
+             "second": 1_000_000}[unit]
+    return _floordiv(x, scale) * scale
+
+
+def _date_trunc_kernel(unit):
+    def kernel(raws, arg_types, ret_type):
+        t = arg_types[0]
+        x = raws[0]
+        if t == T.DATE:
+            return _trunc_days(x, unit).to(torch.int32)
+        if t.is_timestamp_tz:
+            from .tz import device_utc_to_wall, device_wall_to_utc
+
+            wall = device_utc_to_wall(x, t.zone)
+            return device_wall_to_utc(_trunc_wall_micros(wall, unit), t.zone)
+        return _trunc_wall_micros(x, unit)
+
+    return kernel
+
+
 def _resolve_trunc_unit(args):
     (a,) = args
     if a in (T.DATE, T.TIMESTAMP) or a.is_timestamp_tz:
@@ -749,11 +1035,12 @@ def _resolve_trunc_unit(args):
 for _u in ("year", "quarter", "month", "week", "day", "hour", "minute",
            "second"):
     register(ScalarFunction(f"$date_trunc_{_u}", _resolve_trunc_unit,
-                            _unported(f"$date_trunc_{_u}")))
+                            _date_trunc_kernel(_u)))
 
-for _n in ("day_of_week", "dow", "day_of_year", "doy", "week",
-           "week_of_year"):
-    register(ScalarFunction(_n, _resolve_date_part, _unported(_n)))
+for _n, _p in [("day_of_week", "day_of_week"), ("dow", "day_of_week"),
+               ("day_of_year", "day_of_year"), ("doy", "day_of_year"),
+               ("week", "week"), ("week_of_year", "week")]:
+    register(ScalarFunction(_n, _resolve_date_part, _date_part_kernel(_p)))
 
 
 def _resolve_last_day(args):
@@ -762,8 +1049,14 @@ def _resolve_last_day(args):
     return T.DATE
 
 
+def _last_day_kernel(raws, arg_types, ret_type):
+    y, m, _ = _civil_from_days(_to_days(raws[0], arg_types[0]))
+    return (_days_from_civil(y, m, torch.ones_like(m))
+            + _days_in_month(y, m) - 1).to(torch.int32)
+
+
 register(ScalarFunction("last_day_of_month", _resolve_last_day,
-                        _unported("last_day_of_month")))
+                        _last_day_kernel))
 
 
 def _resolve_to_unixtime(args):
@@ -772,8 +1065,9 @@ def _resolve_to_unixtime(args):
     return T.DOUBLE
 
 
-register(ScalarFunction("to_unixtime", _resolve_to_unixtime,
-                        _unported("to_unixtime")))
+register(ScalarFunction(
+    "to_unixtime", _resolve_to_unixtime,
+    lambda raws, at, rt: raws[0].to(torch.float64) / 1e6))
 
 
 def _resolve_from_unixtime(args):
@@ -782,15 +1076,23 @@ def _resolve_from_unixtime(args):
     return T.timestamp_tz_type("UTC")
 
 
-register(ScalarFunction("from_unixtime", _resolve_from_unixtime,
-                        _unported("from_unixtime")))
+register(ScalarFunction(
+    "from_unixtime", _resolve_from_unixtime,
+    lambda raws, at, rt: _float_to_int64(_to_float(raws[0], at[0]) * 1e6)))
 
 
 def _resolve_ts_diff(args):
     return T.BIGINT
 
 
-register(ScalarFunction("$ts_diff", _resolve_ts_diff, _unported("$ts_diff")))
+def _ts_diff_kernel(raws, arg_types, ret_type):
+    b, a, scale = raws
+    d = b.to(torch.int64) - a.to(torch.int64)
+    # truncate toward zero in whole units (the unit is a literal, never 0)
+    return torch.sign(d) * _floordiv(torch.abs(d), scale.to(torch.int64))
+
+
+register(ScalarFunction("$ts_diff", _resolve_ts_diff, _ts_diff_kernel))
 
 
 # ---------------------------------------------------------------------------
@@ -963,6 +1265,24 @@ DD_GAMMA = 1.0202027073175195   #: relative accuracy alpha = 0.01
 DD_OFFSET = 40000               #: keeps positive-value buckets positive
 
 
+def _hash_u64_dev(raw, t):
+    """Device value hash: the JAX engine's uint64 splitmix64 over the
+    value's bits, held as int64. Floats hash their bit pattern (``+0.0``
+    folds -0.0 in); a REAL hashes its 32 bits zero-extended."""
+    from ..ops.hashtable import splitmix64
+
+    if t in (T.DOUBLE, T.REAL):
+        x = raw + 0.0
+        if x.dtype == torch.float64:
+            k = x.view(torch.int64)
+        else:
+            k = x.to(torch.float32).view(torch.int32).to(torch.int64) \
+                & 0xFFFFFFFF
+    else:
+        k = raw.to(torch.int64)
+    return splitmix64(k)
+
+
 def _hash_u64_host(v) -> int:
     """Host value hash for pooled (string/composite) arguments — any
     stable 64-bit digest works; bucket/rho only need consistency."""
@@ -991,11 +1311,32 @@ def _hll_rho_host(v):
     return 53 - rest.bit_length() + 1
 
 
+def _hll_bucket_kernel(raws, arg_types, ret_type):
+    return _hash_u64_dev(raws[0], arg_types[0]) & (HLL_M - 1)
+
+
+def _bit_length(v):
+    """Bit length of non-negative int64 lanes by halving (exact)."""
+    bl = torch.zeros_like(v)
+    x = v
+    for s in (32, 16, 8, 4, 2, 1):
+        m = x >= (1 << s)
+        bl = bl + torch.where(m, s, 0)
+        x = torch.where(m, x >> s, x)
+    return bl + x
+
+
+def _hll_rho_kernel(raws, arg_types, ret_type):
+    from ..ops.hashtable import _shr
+
+    rest = _shr(_hash_u64_dev(raws[0], arg_types[0]), HLL_BITS)  # 53 bits
+    return 53 - _bit_length(rest) + 1
+
+
 register(ScalarFunction("$hll_bucket", _resolve_sketchable("$hll_bucket"),
-                        _unported("$hll_bucket"),
-                        str_scalar=_hll_bucket_host))
+                        _hll_bucket_kernel, str_scalar=_hll_bucket_host))
 register(ScalarFunction("$hll_rho", _resolve_sketchable("$hll_rho"),
-                        _unported("$hll_rho"), str_scalar=_hll_rho_host))
+                        _hll_rho_kernel, str_scalar=_hll_rho_host))
 
 
 def _resolve_dd_bucket(args):
@@ -1005,13 +1346,33 @@ def _resolve_dd_bucket(args):
     return T.BIGINT
 
 
+def _dd_bucket_kernel(raws, arg_types, ret_type):
+    t = arg_types[0]
+    x = raws[0].to(torch.float64)
+    if t.is_decimal:
+        x = x / float(10 ** t.scale)
+    mag = torch.abs(x)
+    lg = torch.log(torch.clamp(mag, min=1e-300)) / math.log(DD_GAMMA)
+    b = _float_to_int64(torch.ceil(lg)) + DD_OFFSET
+    return torch.where(mag < 1e-300, torch.zeros_like(b),
+                       torch.where(x > 0, b, -b))
+
+
 register(ScalarFunction("$dd_bucket", _resolve_dd_bucket,
-                        _unported("$dd_bucket")))
+                        _dd_bucket_kernel))
 
 
 def _resolve_dd_value(args):
     return T.DOUBLE
 
 
-register(ScalarFunction("$dd_value", _resolve_dd_value,
-                        _unported("$dd_value")))
+def _dd_value_kernel(raws, arg_types, ret_type):
+    b = raws[0]
+    mag = torch.abs(b).to(torch.float64) - DD_OFFSET
+    # geometric midpoint of the bucket (gamma^(b-1), gamma^b]
+    val = torch.exp((mag - 0.5) * math.log(DD_GAMMA))
+    return torch.where(b == 0, torch.zeros_like(val),
+                       torch.where(b > 0, val, -val))
+
+
+register(ScalarFunction("$dd_value", _resolve_dd_value, _dd_value_kernel))

@@ -9,8 +9,8 @@ batches with validity masks on one device — so a pipeline's hot ops chain
 on the device without host round-trips. Host boundaries are scans (numpy
 -> device) and output (device -> numpy).
 
-EnforceSingleRow, deferred sources and table writers are not ported yet;
-the local planner rejects plans that need them.
+Table writers are not ported yet; the local planner rejects plans that
+need them.
 """
 
 from __future__ import annotations
@@ -278,6 +278,75 @@ class ValuesOperator(SourceOperator):
             self._done = True
             return None
         return DevicePage.from_page(self._pages.pop(0), device=self.device)
+
+    def is_finished(self) -> bool:
+        return self._done
+
+
+class EnforceSingleRowOperator(Operator):
+    """Scalar-subquery guard: exactly one output row — errors on more,
+    emits an all-NULL row on zero (reference:
+    operator/EnforceSingleRowOperator.java)."""
+
+    def __init__(self, types, device):
+        self.types = list(types)
+        self.device = device
+        self._rows = 0
+        self._pages: List[DevicePage] = []
+        self._emitted = False
+        self._done = False
+
+    def add_input(self, page: DevicePage):
+        n = page.count()
+        if not n:
+            return
+        self._rows += n
+        if self._rows > 1:  # fail fast, don't buffer the stream
+            from ..types import TrinoError
+
+            raise TrinoError("Scalar sub-query has returned multiple rows",
+                             "SUBQUERY_MULTIPLE_ROWS")
+        self._pages.append(page)
+
+    def get_output(self) -> Optional[DevicePage]:
+        if not self._finishing or self._emitted:
+            return None
+        self._emitted = True
+        self._done = True
+        if self._rows == 1:
+            return self._pages[0]
+        if not self.types:
+            return None
+        # one all-NULL row
+        row = Page.from_pylists(self.types, [[None]] * len(self.types))
+        return DevicePage.from_page(row, device=self.device)
+
+    def is_finished(self) -> bool:
+        return self._done
+
+
+class DeferredPagesSourceOperator(SourceOperator):
+    """Source over host pages produced by earlier pipelines of the same
+    plan (union inputs), uploaded to ``device``. The thunk is called at
+    first poll — after the upstream pipelines completed."""
+
+    def __init__(self, pages_thunk, device):
+        self._thunk = pages_thunk
+        self.device = device
+        self._pages = None
+        self._done = False
+
+    def add_split(self, split):
+        raise AssertionError("deferred source has no splits")
+
+    def get_output(self) -> Optional[DevicePage]:
+        if self._pages is None:
+            self._pages = [p for p in self._thunk() if p.num_rows]
+        if self._pages:
+            return DevicePage.from_page(self._pages.pop(0),
+                                        device=self.device)
+        self._done = True
+        return None
 
     def is_finished(self) -> bool:
         return self._done

@@ -755,8 +755,115 @@ class QueryPlanner:
         """One WindowNode per distinct (partition, order, frame) spec
         (reference: QueryPlanner window planning +
         plan/WindowNode.java)."""
-        raise T.TrinoError("window functions are not ported to the torch "
-                           "engine yet", "NOT_SUPPORTED")
+        from ..ops.window import (AGG_FNS, RANKING, VALUE_FNS,
+                                  resolve_window_type)
+        from .plan import WindowFunctionSpec, WindowNode
+
+        replacements = dict(replacements)
+        by_spec: Dict[ast.Window, List[ast.FunctionCall]] = {}
+        for c in calls:
+            by_spec.setdefault(c.window, []).append(c)
+
+        for window, group in by_spec.items():
+            analyzer = ExpressionAnalyzer(rp.scope, self.ctx.session,
+                                          replacements=replacements)
+            node = rp.node
+            pre: List[Tuple[Symbol, RowExpression]] = [
+                (s, s.ref()) for s in node.output_symbols]
+            pre_index: Dict[RowExpression, Symbol] = {}
+
+            def channel_for(expr, hint):
+                if isinstance(expr, SymbolRef) and any(
+                        s.name == expr.name for s, _ in pre):
+                    return Symbol(expr.name, expr.type)
+                got = pre_index.get(expr)
+                if got is not None:
+                    return got
+                sym = self.allocator.new_symbol(hint, expr.type)
+                pre.append((sym, expr))
+                pre_index[expr] = sym
+                return sym
+
+            partition_by = [channel_for(analyzer.analyze(p), "wpart")
+                            for p in window.partition_by]
+            orderings = []
+            for si in window.order_by:
+                sym = channel_for(analyzer.analyze(si.key), "worder")
+                orderings.append(Ordering(sym, si.ascending,
+                                          si.nulls_last))
+            frame_mode, frame_start, frame_end = self._frame_spec(window)
+            functions: List[Tuple[Symbol, "WindowFunctionSpec"]] = []
+            for c in group:
+                name = c.name.lower()
+                if c.distinct:
+                    raise AnalysisError(
+                        "DISTINCT window aggregates not supported")
+                arg_sym = None
+                offset = 1
+                if name == "count" and not c.args:
+                    name = "count_star"
+                elif name == "ntile":
+                    if len(c.args) != 1 or not isinstance(
+                            c.args[0], ast.LongLiteral):
+                        raise AnalysisError(
+                            "ntile requires a literal bucket count")
+                    offset = c.args[0].value
+                elif name in ("lag", "lead"):
+                    if not (1 <= len(c.args) <= 2):
+                        raise AnalysisError(
+                            f"{name} takes 1-2 arguments here")
+                    arg_sym = channel_for(analyzer.analyze(c.args[0]),
+                                          name)
+                    if len(c.args) == 2:
+                        if not isinstance(c.args[1], ast.LongLiteral):
+                            raise AnalysisError(
+                                f"{name} offset must be a literal")
+                        offset = c.args[1].value
+                elif name == "nth_value":
+                    if len(c.args) != 2 or not isinstance(
+                            c.args[1], ast.LongLiteral) \
+                            or c.args[1].value < 1:
+                        raise AnalysisError(
+                            "nth_value takes (expr, positive literal n)")
+                    arg_sym = channel_for(analyzer.analyze(c.args[0]),
+                                          name)
+                    offset = c.args[1].value
+                elif name in ("row_number", "rank", "dense_rank"):
+                    if c.args:
+                        raise AnalysisError(f"{name} takes no arguments")
+                elif name in AGG_FNS | VALUE_FNS:
+                    if len(c.args) != 1:
+                        raise AnalysisError(
+                            f"window {name} takes one argument")
+                    arg_sym = channel_for(analyzer.analyze(c.args[0]),
+                                          name)
+                else:
+                    raise AnalysisError(
+                        f"unknown window function {name}")
+                if name in RANKING and window.frame is not None \
+                        and frame_mode != "partition":
+                    # UNBOUNDED..UNBOUNDED on a ranking fn is a no-op
+                    # (accepted, as in the reference); real frames error
+                    raise AnalysisError(
+                        f"{name} does not take a frame")
+                mode, fs, fe = frame_mode, frame_start, frame_end
+                if name in RANKING:
+                    mode, fs, fe = "partition", None, None
+                out_t = resolve_window_type(
+                    name, arg_sym.type if arg_sym else None)
+                out_sym = self.allocator.new_symbol(name, out_t)
+                functions.append(
+                    (out_sym, WindowFunctionSpec(name, arg_sym, mode,
+                                                 offset, fs, fe)))
+                replacements[c] = out_sym
+            if len(pre) != len(node.output_symbols):
+                node = ProjectNode(node, pre)
+            node = WindowNode(node, partition_by, orderings, functions)
+            rp = RelationPlan(node, Scope(
+                rp.scope.fields + [FieldDef(None, s, hidden=True)
+                                   for s, _ in functions],
+                rp.scope.parent))
+        return rp, replacements
 
     def _plan_distinct_aggs(self, pre, group_keys, aggregations):
         """DISTINCT aggregates via group-by rewrite.

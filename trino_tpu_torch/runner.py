@@ -5,10 +5,13 @@ Reference analog: ``core/trino-main/.../testing/LocalQueryRunner.java:254``
 — the single-node, no-HTTP engine. The path is the JAX engine's
 (``trino_tpu/runner.py``: parse -> analyze -> plan -> optimize ->
 LocalExecutionPlanner -> Driver) without its plan and result caches, plan
-templates, batching and history-based statistics. Ported plans: scans
-(with dynamic filters from join builds), filter/project, aggregation,
-hash joins (sorted-index and matmul strategies), sort, TopN and
-limit/offset; the local planner raises NOT_SUPPORTED on the rest.
+templates, batching and history-based statistics. It plans every
+one-device query of the JAX engine: scans (with dynamic filters from join
+builds), filter/project, UNNEST, aggregation, DISTINCT, hash joins
+(sorted-index and matmul strategies), UNION/INTERSECT/EXCEPT, scalar
+subqueries, window functions, grouped top-N, sort, TopN and
+limit/offset. Writers (CTAS, INSERT) and EXPLAIN ANALYZE raise
+NOT_SUPPORTED.
 
 The device is explicit: ``device`` defaults to ``"cuda"``, and a runner
 asked for CUDA on a machine without a GPU raises instead of running on
