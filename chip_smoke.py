@@ -68,14 +68,47 @@ Phases, one JSON line each on standard output:
              INTERSECT, EXCEPT, UNNEST and a scalar subquery, on the card
              and on the engine's CPU path: the rows must agree (as sorted
              lists);
-12. the ``kernels`` line: per kernel its route, source, the TPU kernel it
+12. memory_sf1 — CTAS of lineitem, orders and customer (every column
+             but the free-text comments) from ``tpch.sf1`` into memory
+             tables, through the card, each checked against the table's
+             row count, with its wall time, written rows and the host
+             bytes the tables hold; then q1, q3, q6 and q18 over the
+             memory tables, each held against the oracle, with cold and
+             warm wall beside the same query's warm wall over the
+             generator from the phases above, the device busy share
+             (torch.profiler, as ``scripts/profile_torch_q1.py``), the
+             kernel calls (one per aggregated page) and the joins; the
+             cold runs of q3 and q18 record their kernel calls, whose
+             page counts differ from the generator's (the memory scan
+             does not coalesce pages);
+    memory_q3_columns, memory_q18_columns — those calls replayed like
+             q3's, exact, page and merge timed;
+13. explain_analyze_sf1 — EXPLAIN ANALYZE of q18 over the memory tables:
+             the plan, a ``Query:`` line whose row count is the oracle's,
+             the ``Memory:`` line and one stats line per operator under
+             each ``Pipeline i:``, all printed;
+14. spill_sf1 — over the memory tables: (a) q18 with both spill tiers on,
+             a cap of 3/4 of its unspilled peak from memory_sf1 and no
+             host budget (every parked page goes to disk), held against
+             the oracle with spill and disk events; (b) lineitem join
+             orders under 1/8 of its unspilled peak, where the hybrid
+             build parks partitions, equal to the uncapped run; (c) an
+             ORDER BY over orders under half its unspilled peak with
+             spill off, which only the host sort fits, equal to the
+             uncapped run; wall, spilled and file bytes, kernel calls; no
+             spill file may be left behind; (a) records its kernel calls;
+    spill_q18_columns — (a)'s calls replayed like q3's, exact: its merges
+             take partials reloaded from disk, compacted, in budget
+             chunks;
+15. the ``kernels`` line: per kernel its route, source, the TPU kernel it
    replaces, launches on the main path (the sum over every query run
    above, with the count of each beside it), its error against the plain
    version, its time, the plain version's, the library call's and its
    memory/compute bound at the main path's shape (q1's page call), and
-   the same at q3's and q18's page and merge calls (``q3_shapes``,
-   ``q18_shapes``);
-13. the last line: ``{"ok": true, "device": {...}}``.
+   the same at the page and merge calls of every replay above
+   (``q3_shapes``, ``q18_shapes``, ``memory_q3_shapes``,
+   ``memory_q18_shapes``, ``spill_q18_shapes``);
+16. the last line: ``{"ok": true, "device": {...}}``.
 
 Any failed check raises; nothing is caught, so a failed phase ends the
 run with a non-zero exit code before the last line is printed.
@@ -460,7 +493,7 @@ def _aggregated_pages(res) -> int:
                if op["name"] == "HashAggregationOperator")
 
 
-def q1_phase(card):
+def q1_phase(card, walls):
     import torch
 
     from trino_tpu_torch import LocalQueryRunner
@@ -483,6 +516,7 @@ def q1_phase(card):
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
     launches = {"segment_reduce": kernels.segment_reduce.launches}
+    walls[1] = round(warm_s, 4)
     _assert_same(res, _load_expected(1), "q1")
     pages = _aggregated_pages(res)
     if pages == 0 or launches["segment_reduce"] != pages:
@@ -514,7 +548,7 @@ def _recording(calls):
     return record
 
 
-def q3_phase(card):
+def q3_phase(card, walls):
     """q3 at SF1; returns the launches of the warm run and the inputs of
     every kernel call of the cold run (the same calls: the data and the
     operators' capacity guesses are the same in both runs)."""
@@ -546,6 +580,7 @@ def q3_phase(card):
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
     launches = {"segment_reduce": kernels.segment_reduce.launches}
+    walls[3] = round(warm_s, 4)
     _assert_same(res, _load_expected(3), "q3")
     pages = _aggregated_pages(res)
     if pages == 0 or launches["segment_reduce"] != pages \
@@ -595,7 +630,7 @@ def _sf1_runner(device="cuda", schema="sf1"):
                             desired_splits=8, device=device)
 
 
-def tpch_sf1_phase(card, qid: int, calls=None):
+def tpch_sf1_phase(card, qid: int, walls, calls=None):
     """TPC-H ``qid`` at SF1, held against the oracle; cold and warm wall,
     segment-reduce calls (one per aggregated page) and the joins'
     strategies. With ``calls``, the cold run keeps a copy of the inputs
@@ -623,6 +658,7 @@ def tpch_sf1_phase(card, qid: int, calls=None):
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
     launches = kernels.segment_reduce.launches
+    walls[qid] = round(warm_s, 4)
     _assert_same(res, _load_expected(qid), f"q{qid}")
     pages = _aggregated_pages(res)
     if pages == 0 or launches != pages or \
@@ -900,6 +936,306 @@ def sql_surface_phase(card):
     return launches
 
 
+#: the memory tables of ``memory_sf1``: every column but the free-text
+#: comments (each SF1 comment column is millions of distinct strings,
+#: and no query of the phase reads one)
+MEMORY_TABLES = {
+    "lineitem": ["l_orderkey", "l_partkey", "l_suppkey", "l_linenumber",
+                 "l_quantity", "l_extendedprice", "l_discount", "l_tax",
+                 "l_returnflag", "l_linestatus", "l_shipdate",
+                 "l_commitdate", "l_receiptdate", "l_shipinstruct",
+                 "l_shipmode"],
+    "orders": ["o_orderkey", "o_custkey", "o_orderstatus", "o_totalprice",
+               "o_orderdate", "o_orderpriority", "o_clerk",
+               "o_shippriority"],
+    "customer": ["c_custkey", "c_name", "c_address", "c_nationkey",
+                 "c_phone", "c_acctbal", "c_mktsegment"],
+}
+MEMORY_QUERIES = (1, 3, 6, 18)
+
+
+def _busy_share(run) -> float:
+    """Device busy share of one run: the self device time of every
+    device-side event (kernels and copies) from torch.profiler over the
+    host wall, as scripts/profile_torch_q1.py measures it."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type != DeviceType.CPU) / 1e6
+    return busy / wall
+
+
+def _host_bytes(conn, table: str) -> int:
+    data = conn.tables[("default", table)]
+    return sum(b.numpy().data.nbytes + (0 if b.nulls is None
+                                        else b.nulls.nbytes)
+               for p in data.pages for b in p.blocks)
+
+
+def memory_sf1_phase(card, tpch_warm):
+    """CTAS of lineitem, orders and customer from ``tpch.sf1`` into
+    memory tables (through the card: scan, project, TableWriter), then
+    q1, q3, q6 and q18 over them, each held against the oracle, with cold
+    and warm wall, the device busy share, the segment-reduce calls (one
+    per aggregated page) and the joins' strategies, beside the same
+    query's warm wall over the generator (``tpch_warm``). The cold runs
+    of q3 and q18 keep a copy of the inputs of every kernel call they
+    make. Returns the runner, the warm runs' launches per query, each
+    query's unspilled peak bytes and the recorded calls per query."""
+    import torch
+
+    from trino_tpu_torch import LocalQueryRunner
+    from trino_tpu_torch.connectors.memory import MemoryConnector
+    from trino_tpu_torch.connectors.tpch import TpchConnector
+    from trino_tpu_torch.ops import aggregation, hashtable, kernels
+    from trino_tpu_torch.resources.tpch_queries import TPCH_QUERIES
+    from trino_tpu_torch.sql.analyzer import Session
+
+    tpch = TpchConnector(page_rows=1 << 16)
+    mem = MemoryConnector()
+    runner = LocalQueryRunner({"tpch": tpch, "memory": mem},
+                              Session(catalog="memory", schema="default"),
+                              desired_splits=8, device="cuda")
+    ctas = {}
+    for table, cols in MEMORY_TABLES.items():
+        t0 = time.perf_counter()
+        res = runner.execute(f"create table {table} as select "
+                             f"{', '.join(cols)} from tpch.sf1.{table}")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        meta = tpch.metadata()
+        want = int(meta.get_statistics(
+            meta.get_table_handle("sf1", table)).row_count)
+        if res.rows != [(want,)]:
+            raise AssertionError(f"CTAS {table}: wrote {res.rows}, the "
+                                 f"table holds {want} rows")
+        ctas[table] = {"wall_s": round(wall, 3), "rows": want,
+                       "pages": len(mem.tables[("default", table)].pages),
+                       "host_bytes": _host_bytes(mem, table)}
+    emit({"phase": "memory_sf1", "ctas": ctas,
+          "host_bytes": sum(c["host_bytes"] for c in ctas.values()),
+          "card": card["nvidia_smi"]})
+    launches, peaks, calls = {}, {}, {3: [], 18: []}
+    for qid in MEMORY_QUERIES:
+        sql = TPCH_QUERIES[qid]
+        if qid in calls:
+            aggregation.segment_reduce_columns = _recording(calls[qid])
+            hashtable.segment_reduce_columns = _recording(calls[qid])
+        t0 = time.perf_counter()
+        runner.execute(sql)
+        torch.cuda.synchronize()
+        cold_s = time.perf_counter() - t0
+        aggregation.segment_reduce_columns = kernels.segment_reduce_columns
+        hashtable.segment_reduce_columns = kernels.segment_reduce_columns
+        kernels.segment_reduce.launches = 0
+        t0 = time.perf_counter()
+        res = runner.execute(sql)
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        launches[qid] = kernels.segment_reduce.launches
+        _assert_same(res, _load_expected(qid), f"memory q{qid}")
+        pages = _aggregated_pages(res)
+        if pages == 0 or launches[qid] != pages or \
+                (qid in calls and len(calls[qid]) != pages):
+            raise AssertionError(
+                f"memory q{qid}: segment_reduce launched {launches[qid]} "
+                f"times (cold run: {len(calls.get(qid, []))} calls) for "
+                f"{pages} aggregated pages (want one per page)")
+        peaks[qid] = res.stats["memory"]["peak_bytes"]
+        emit({"phase": "memory_sf1", "query": f"q{qid}",
+              "rows_out": len(res.rows), "matches_oracle": True,
+              "aggregated_pages": pages,
+              "launches": {"segment_reduce": launches[qid]},
+              "cold_s": round(cold_s, 3), "warm_s": round(warm_s, 4),
+              "tpch_warm_s": tpch_warm.get(qid),
+              "device_busy_share": _busy_share(lambda: runner.execute(sql)),
+              "joins": _join_strategies(res), "peak_bytes": peaks[qid],
+              "card": card["nvidia_smi"]})
+    return runner, launches, peaks, calls
+
+
+_OPERATOR_LINE = r"  (\w+): (\d+) rows, (\d+) pages, [0-9.]+ms.*"
+
+
+def explain_analyze_phase(card, runner):
+    """EXPLAIN ANALYZE of q18 over the memory tables: the plan, then the
+    ``Query:`` line (whose row count must be q18's), the ``Memory:`` line
+    and one stats line per operator under each ``Pipeline i:``."""
+    import re
+
+    from trino_tpu_torch.ops import kernels
+    from trino_tpu_torch.resources.tpch_queries import TPCH_QUERIES
+
+    kernels.segment_reduce.launches = 0
+    t0 = time.perf_counter()
+    lines = [r[0] for r in runner.execute(
+        "explain analyze " + TPCH_QUERIES[18]).rows]
+    wall = time.perf_counter() - t0
+    launches = kernels.segment_reduce.launches
+    blank = lines.index("")
+    query = re.fullmatch(r"Query: ([0-9.]+)ms, (\d+) rows", lines[blank + 1])
+    memory = re.fullmatch(r"Memory: peak \d+ bytes, \d+ spills \(\d+ "
+                          r"bytes\)", lines[blank + 2])
+    if not (query and memory and lines[0].startswith("- Output")):
+        raise AssertionError(f"EXPLAIN ANALYZE q18: {lines}")
+    want_rows = len(_load_expected(18))
+    if int(query.group(2)) != want_rows:
+        raise AssertionError(f"EXPLAIN ANALYZE q18: {query.group(2)} rows, "
+                             f"the oracle has {want_rows}")
+    pipelines, operators, pipeline = 0, [], None
+    for line in lines[blank + 3:]:
+        m = re.fullmatch(r"Pipeline (\d+):", line)
+        if m:
+            pipeline = int(m.group(1))
+            if pipeline != pipelines:
+                raise AssertionError(f"EXPLAIN ANALYZE q18: {line}")
+            pipelines += 1
+            continue
+        m = re.fullmatch(_OPERATOR_LINE, line)
+        if not m or pipeline is None:
+            raise AssertionError(f"EXPLAIN ANALYZE q18: {line!r}")
+        operators.append((pipeline, m.group(1), int(m.group(2))))
+    heads = {p for p, name, _ in operators
+             if name in ("TableScanOperator", "DeferredPagesSourceOperator")}
+    sink = [r for p, name, r in operators if p == pipelines - 1]
+    # the last pipeline ends in the output collector, fed q18's rows
+    if heads != set(range(pipelines)) or sink[-2] != want_rows:
+        raise AssertionError(f"EXPLAIN ANALYZE q18: operators {operators}")
+    emit({"phase": "explain_analyze_sf1", "wall_s": round(wall, 3),
+          "query_ms": float(query.group(1)), "rows": want_rows,
+          "pipelines": pipelines, "operators": len(operators),
+          "launches": {"segment_reduce": launches}, "lines": lines,
+          "card": card["nvidia_smi"]})
+    return launches
+
+
+#: no aggregation above the join: its unspilled peak is the build's
+SPILL_JOIN_SQL = ("select l_orderkey, l_linenumber, o_totalprice from "
+                  "lineitem, orders where l_orderkey = o_orderkey and "
+                  "l_quantity > 49")
+SPILL_SORT_SQL = ("select o_orderkey, o_totalprice, o_orderdate from orders "
+                  "order by o_totalprice desc, o_orderkey")
+
+
+def _spill_run(runner, sql, props, calls=None):
+    """One statement under the session properties ``props`` (restored
+    afterwards): (result, wall seconds, segment-reduce calls). With
+    ``calls``, it keeps a copy of the inputs of every kernel call."""
+    import torch
+
+    from trino_tpu_torch.ops import aggregation, hashtable, kernels
+
+    saved = dict(runner.session.properties)
+    runner.session.properties.update(props)
+    if calls is not None:
+        aggregation.segment_reduce_columns = _recording(calls)
+        hashtable.segment_reduce_columns = _recording(calls)
+    try:
+        kernels.segment_reduce.launches = 0
+        t0 = time.perf_counter()
+        res = runner.execute(sql)
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0, kernels.segment_reduce.launches
+    finally:
+        aggregation.segment_reduce_columns = kernels.segment_reduce_columns
+        hashtable.segment_reduce_columns = kernels.segment_reduce_columns
+        runner.session.properties.clear()
+        runner.session.properties.update(saved)
+
+
+def _spill_record(res, wall, launches):
+    m = res.stats["memory"]
+    return {"wall_s": round(wall, 3), "peak_bytes": m["peak_bytes"],
+            "max_bytes": m["max_bytes"], "spill_events": m["spill_events"],
+            "spilled_bytes": m["spilled_bytes"],
+            "partition_spills": m["partition_spills"],
+            "disk_spill_events": m.get("disk_spill_events"),
+            "disk_spilled_bytes": m.get("disk_spilled_bytes"),
+            "disk_file_bytes": m.get("disk_file_bytes"),
+            "launches": {"segment_reduce": launches}}
+
+
+def spill_phase(card, runner, peaks):
+    """The spill tiers over the memory tables, each run held against its
+    oracle: (a) q18 with both tiers on, a cap of 3/4 of its unspilled
+    peak from ``memory_sf1`` and no host budget, so every parked page
+    goes to disk; (b) lineitem join orders under a cap of 1/8 of the
+    unspilled run's peak, which the hybrid build survives by parking
+    partitions; (c) an ORDER BY under half its unspilled peak with spill
+    off, which only the host sort fits. No spill file may be left.
+    Returns the launches per case and the inputs of every kernel call
+    of (a), whose merges take reloaded partials in budget chunks."""
+    from trino_tpu_torch.exec.memory import spill_root
+    from trino_tpu_torch.resources.tpch_queries import TPCH_QUERIES
+
+    launches, calls = {}, []
+    # (a) the disk tier under q18
+    cap = peaks[18] * 3 // 4
+    res, wall, n = _spill_run(runner, TPCH_QUERIES[18], {
+        "query_max_memory_bytes": cap, "spill_enabled": True,
+        "spill_to_disk_enabled": True, "spill_host_memory_bytes": 0}, calls)
+    _assert_same(res, _load_expected(18), "spilled q18")
+    rec = _spill_record(res, wall, n)
+    if not (rec["spill_events"] > 0 and rec["disk_spill_events"] > 0
+            and rec["peak_bytes"] <= cap and len(calls) == n
+            and n >= _aggregated_pages(res) > 0):
+        raise AssertionError(f"spilled q18: {len(calls)} calls recorded, "
+                             f"{_aggregated_pages(res)} aggregated pages, "
+                             f"{rec}")
+    launches["spill_q18"] = n
+    emit({"phase": "spill_sf1", "case": "q18_disk",
+          "unspilled_peak_bytes": peaks[18], **rec,
+          "card": card["nvidia_smi"]})
+    # (b) the hybrid join
+    free, free_wall, free_n = _spill_run(runner, SPILL_JOIN_SQL, {})
+    cap = free.stats["memory"]["peak_bytes"] // 8
+    res, wall, n = _spill_run(runner, SPILL_JOIN_SQL, {
+        "query_max_memory_bytes": cap, "spill_enabled": True})
+    rec = _spill_record(res, wall, n)
+    # cold partitions join after the resident stream: compare as sets
+    if sorted(res.rows) != sorted(free.rows) or not (
+            rec["partition_spills"] > 0 and rec["peak_bytes"] <= cap):
+        raise AssertionError(f"hybrid join: {len(res.rows)} rows vs "
+                             f"{len(free.rows)}, {rec}")
+    build = next(op for op in res.stats["operators"]
+                 if op["name"] == "HashBuilderOperator")
+    launches["spill_join"] = free_n + n
+    emit({"phase": "spill_sf1", "case": "hybrid_join",
+          "unspilled_peak_bytes": free.stats["memory"]["peak_bytes"],
+          "unspilled_wall_s": round(free_wall, 3), "rows": len(free.rows),
+          "hybrid": build.get("hybrid_spill"), **rec,
+          "card": card["nvidia_smi"]})
+    # (c) the host sort, spill off
+    free, free_wall, _ = _spill_run(runner, SPILL_SORT_SQL, {})
+    cap = free.stats["memory"]["peak_bytes"] // 2
+    res, wall, n = _spill_run(runner, SPILL_SORT_SQL, {
+        "query_max_memory_bytes": cap})
+    rec = _spill_record(res, wall, n)
+    if res.rows != free.rows or rec["peak_bytes"] > cap \
+            or rec["spill_events"]:
+        raise AssertionError(f"host sort: {len(res.rows)} rows vs "
+                             f"{len(free.rows)}, {rec}")
+    launches["spill_sort"] = n
+    emit({"phase": "spill_sf1", "case": "host_sort",
+          "unspilled_peak_bytes": free.stats["memory"]["peak_bytes"],
+          "unspilled_wall_s": round(free_wall, 3), "rows": len(res.rows),
+          **rec, "card": card["nvidia_smi"]})
+    root = os.path.join(spill_root(), str(os.getpid()))
+    left = [f for d in (os.listdir(root) if os.path.isdir(root) else [])
+            for f in os.listdir(os.path.join(root, d))]
+    if left:
+        raise AssertionError(f"spill files left behind: {left}")
+    return launches, calls
+
+
 def _bound_ms(cols, n: int, num_segments: int, with_order: bool):
     """(bound ms, bound_by, bytes) of one ``segment_reduce_columns`` call:
     gid (and order) read once per row, each column read once per row and
@@ -991,20 +1327,34 @@ def main() -> int:
     build_phase()
     kernel_phase()
     main_shape = columns_phase()
-    q1_launches = q1_phase(card)
-    q3_launches, q3_calls = q3_phase(card)
+    tpch_warm = {}
+    q1_launches = q1_phase(card, tpch_warm)
+    q3_launches, q3_calls = q3_phase(card, tpch_warm)
     launches = {"q1": q1_launches["segment_reduce"],
                 "q3": q3_launches["segment_reduce"]}
     q3_shapes = columns_replay_phase("q3_columns", q3_calls, "n")
     del q3_calls
-    launches["q6"] = tpch_sf1_phase(card, 6)
-    launches["q13"] = tpch_sf1_phase(card, 13)
+    launches["q6"] = tpch_sf1_phase(card, 6, tpch_warm)
+    launches["q13"] = tpch_sf1_phase(card, 13, tpch_warm)
     q18_calls = []
-    launches["q18"] = tpch_sf1_phase(card, 18, q18_calls)
+    launches["q18"] = tpch_sf1_phase(card, 18, tpch_warm, q18_calls)
     q18_shapes = columns_replay_phase("q18_columns", q18_calls, "live")
     del q18_calls
     launches["window"] = window_phase(card)
     launches["sql_surface"] = sql_surface_phase(card)
+    runner, memory_launches, peaks, memory_calls = memory_sf1_phase(
+        card, tpch_warm)
+    launches.update({f"memory_q{q}": n for q, n in memory_launches.items()})
+    replayed = {"q3": q3_shapes, "q18": q18_shapes}
+    for qid, page_by in ((3, "n"), (18, "live")):
+        replayed[f"memory_q{qid}"] = columns_replay_phase(
+            f"memory_q{qid}_columns", memory_calls.pop(qid), page_by)
+    launches["explain_analyze_q18"] = explain_analyze_phase(card, runner)
+    spill_launches, spill_calls = spill_phase(card, runner, peaks)
+    launches.update(spill_launches)
+    replayed["spill_q18"] = columns_replay_phase("spill_q18_columns",
+                                                 spill_calls, "live")
+    del runner, spill_calls
     bytes_ms = main_shape["bytes"] / HBM_BYTES_PER_S * 1e3
     ops_ms = main_shape["n"] * STATES_PER_PAGE / VECTOR_OPS_PER_S * 1e3
     emit({"kernels": [{
@@ -1024,7 +1374,7 @@ def main() -> int:
             "n", "groups", "columns", "max_abs_err", "kernel_ms",
             "plain_ms", "device_ms", "bound_ms", "bound_by", "library_ms")}
             for case, t in shapes.items()}
-           for q, shapes in (("q3", q3_shapes), ("q18", q18_shapes))},
+           for q, shapes in replayed.items()},
     }]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": card["kind"],
                                  "count": card["count"]}})

@@ -334,3 +334,59 @@ def test_integer_divide_and_mod_by_zero_on_dead_lanes(dev):
         live = valid & ~wn
         np.testing.assert_array_equal(gn[valid], wn[valid])
         np.testing.assert_array_equal(gc[live], wc[live])
+
+
+def _memory_runner(device, **props):
+    """A runner over memory tables filled by CTAS from tpch tiny."""
+    from trino_tpu_torch.connectors.memory import MemoryConnector
+
+    runner = LocalQueryRunner(
+        {"memory": MemoryConnector(),
+         "tpch": TpchConnector(page_rows=4096)},
+        Session(catalog="memory", schema="default", properties=props),
+        device=device)
+    for t in ("lineitem", "orders"):
+        runner.execute(f"create table {t} as select * from tpch.tiny.{t}")
+    return runner
+
+
+def test_memory_table_q1_on_the_card_equals_the_cpu_path(dev):
+    """CTAS moves tiny lineitem through the card into a memory table; q1
+    over it on the card gives the CPU path's rows, one kernel call per
+    aggregated page."""
+    on_cpu = _memory_runner("cpu").execute(TPCH_QUERIES[1])
+    runner = _memory_runner(dev)
+    before = kernels.segment_reduce.launches
+    on_card = runner.execute(TPCH_QUERIES[1])
+    launched = kernels.segment_reduce.launches - before
+    pages = sum(sum(op.get("grouping_paths", {}).values())
+                for op in on_card.stats["operators"]
+                if op["name"] == "HashAggregationOperator")
+    assert pages > 0 and launched == pages
+    assert on_card.rows == on_cpu.rows
+
+
+@pytest.mark.parametrize("to_disk", [False, True])
+def test_spilled_aggregation_on_the_card_equals_unspilled(dev, to_disk):
+    """The large-group aggregation and a join under a cap far below their
+    state, on the card: the partials and build partitions go to the host
+    (and to disk), come back onto the runner's device and give the
+    unspilled run's rows."""
+    sql = ("select l_orderkey, sum(l_quantity) qty, count(*) c from "
+           "lineitem group by l_orderkey order by qty desc, l_orderkey "
+           "limit 20")
+    join = ("select o_orderpriority, count(*), sum(l_quantity) from orders "
+            "o join lineitem l on o.o_orderkey = l.l_orderkey group by "
+            "o_orderpriority order by o_orderpriority")
+    free = _memory_runner(dev)
+    props = {"spill_enabled": True, "spill_to_disk_enabled": to_disk,
+             "spill_host_memory_bytes": 0 if to_disk else 1 << 30,
+             "query_max_memory_bytes": 4_000_000}
+    capped = _memory_runner(dev, **props)
+    for q in (sql, join):
+        want = free.execute(q)
+        got = capped.execute(q)
+        mem = got.stats["memory"]
+        assert got.rows == want.rows
+        assert mem["spill_events"] > 0 and mem["peak_bytes"] <= 4_000_000
+        assert (mem.get("disk_spill_events", 0) > 0) == to_disk

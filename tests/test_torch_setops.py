@@ -5,8 +5,8 @@ Each statement runs through both engines over the same generated data;
 rows must be equal (in order under a total ORDER BY, else as sorted
 lists). A scalar subquery that returns two rows must raise
 SUBQUERY_MULTIPLE_ROWS in both engines; one that returns none yields
-NULL. Plans the torch engine still does not run (writers, EXPLAIN
-ANALYZE) raise NOT_SUPPORTED.
+NULL. A CTAS into the read-only tpch catalog raises NOT_SUPPORTED in
+both engines, and EXPLAIN ANALYZE renders the same plan and operators.
 """
 
 import pytest
@@ -103,7 +103,26 @@ def test_scalar_subquery_with_two_rows_raises_in_both(runners, sql):
     "explain analyze select count(*) from nation",
 ])
 def test_writers_and_explain_analyze_raise_not_supported(runners, sql):
-    _, pr = runners
-    with pytest.raises(TrinoError) as e:
-        pr.execute(sql)
-    assert e.value.code == "NOT_SUPPORTED"
+    """Both raised NOT_SUPPORTED in the torch engine while writers and
+    EXPLAIN ANALYZE were unported; now the two engines answer alike. A
+    CTAS into the read-only tpch catalog raises the connector's
+    NOT_SUPPORTED in both; EXPLAIN ANALYZE renders the same plan and the
+    same operators with the same row counts (more cases in
+    tests/test_torch_connectors.py and test_torch_explain_analyze.py)."""
+    from test_torch_explain_analyze import explain_analyze_parts
+
+    jr, pr = runners
+    if sql.startswith("create"):
+        with pytest.raises(JTrinoError) as je:
+            jr.execute(sql)
+        with pytest.raises(TrinoError) as pe:
+            pr.execute(sql)
+        assert je.value.code == pe.value.code == "NOT_SUPPORTED"
+        assert str(pe.value) == str(je.value)
+        return
+    jplan, jrows, _, jops = explain_analyze_parts(
+        [r for r in jr.execute(sql).rows
+         if not r[0].startswith("Worst misestimate")])
+    pplan, prows, _, pops = explain_analyze_parts(pr.execute(sql).rows)
+    assert (pplan, prows, pops) == (jplan, jrows, jops)
+    assert prows == 1

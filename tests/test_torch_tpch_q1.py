@@ -28,7 +28,6 @@ from trino_tpu_torch.exec.memory import (MemoryExceededError,
                                          default_node_memory_bytes)
 from trino_tpu_torch.ops import kernels
 from trino_tpu_torch.sql.analyzer import Session as PSession
-from trino_tpu_torch.types import TrinoError
 
 torch.set_num_threads(2)
 
@@ -191,13 +190,22 @@ def test_unported_plans_raise_not_supported(sql):
 
 
 def test_memory_limit_and_spill_are_enforced():
+    """A cap below q1's state fails without spill; with spill on (which
+    raised NOT_SUPPORTED before the spill tiers were ported) a cap that
+    fails without it parks the aggregation's partials on the host and q1
+    returns the JAX engine's rows."""
     _, pr = _runners("micro", {"query_max_memory_bytes": 1 << 16})
     with pytest.raises(MemoryExceededError):
         pr.execute(TPCH_QUERIES[1])
-    _, pr = _runners("micro", {"spill_enabled": True})
-    with pytest.raises(TrinoError) as e:
+    _, pr = _runners("micro", {"query_max_memory_bytes": 1 << 20},
+                     page_rows=512)
+    with pytest.raises(MemoryExceededError):
         pr.execute(TPCH_QUERIES[1])
-    assert e.value.code == "NOT_SUPPORTED"
+    props = {"spill_enabled": True, "query_max_memory_bytes": 1 << 20}
+    jr, pr = _runners("micro", props, page_rows=512)
+    got = pr.execute(TPCH_QUERIES[1])
+    _same_rows(got.rows, jr.execute(TPCH_QUERIES[1]).rows)
+    assert got.stats["memory"]["spill_events"] > 0
     assert default_node_memory_bytes("cpu", fallback=123) == 123
 
 

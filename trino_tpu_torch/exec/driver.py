@@ -30,12 +30,22 @@ class OperatorStats:
     metrics: Optional[dict] = None
 
     def line(self) -> str:
+        """The operator's EXPLAIN ANALYZE line: the JAX engine's format
+        without its jit compile count and compiled-program cost (this
+        engine runs eager torch ops), so names, rows and pages compare
+        line by line."""
         ms = self.wall_ns / 1e6
         base = (f"{self.name}: {self.output_rows} rows, "
                 f"{self.output_pages} pages, {ms:.1f}ms")
-        if self.metrics:
-            base += " " + " ".join(f"{k}={v}" for k, v in
-                                   sorted(self.metrics.items()))
+        m = self.metrics or {}
+        if m.get("strategy"):
+            # kernel-strategy operators report what ran (including a
+            # fallback) plus the cost-model estimate that picked it
+            base += f" [strategy {m['strategy']}"
+            for k in ("estimate", "fallback", "key_range"):
+                if m.get(k):
+                    base += f" {k}={m[k]!r}"
+            base += "]"
         return base
 
 

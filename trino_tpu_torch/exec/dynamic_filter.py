@@ -59,9 +59,10 @@ class DynamicFilter:
 
     # -- build side -----------------------------------------------------
 
-    def collect(self, col, nulls, valid):
-        """Collect the domain from build-side device tensors (called once
-        at HashBuilder publish; one device->host transfer)."""
+    def collect(self, col, nulls, valid, device=None):
+        """Collect the domain from build-side tensors (called once at
+        HashBuilder publish; one device->host transfer). The value set
+        goes onto ``device``, by default the tensors' own."""
         live = (valid & ~nulls).cpu().numpy()
         vals = col.cpu().numpy()[live]
         self.build_rows = int(vals.shape[0])
@@ -85,7 +86,8 @@ class DynamicFilter:
             padded = np.full(cap, uniq[-1], dtype=uniq.dtype)
             padded[:uniq.shape[0]] = uniq
             self._values = padded
-            self._values_dev = torch.from_numpy(padded).to(col.device)
+            self._values_dev = torch.from_numpy(padded).to(
+                col.device if device is None else device)
         self.ready = True
 
     # -- probe side -----------------------------------------------------

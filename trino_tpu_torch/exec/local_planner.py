@@ -8,8 +8,9 @@ The torch engine plans every node of a one-device query: TableScan (with
 dynamic filters), Values, Filter, Project, Unnest, Aggregation, Distinct,
 Join (sorted-index and matmul strategies), cross join, the set operations
 (UNION [ALL], INTERSECT, EXCEPT), EnforceSingleRow (scalar subqueries),
-Sort, TopN, TopNRanking (grouped top-N), Window, Limit/Offset and Output.
-Table writers and remote sources (distribution) raise NOT_SUPPORTED.
+Sort, TopN, TopNRanking (grouped top-N), Window, Limit/Offset, Output
+and TableWriter (CTAS and INSERT). Remote sources (distribution) raise
+NOT_SUPPORTED.
 Union inputs and join build sides run as pipelines before their
 consumers, in list order, as in the JAX engine.
 """
@@ -41,6 +42,18 @@ from ..planner.plan import (AggregationNode, CrossJoinNode, DistinctNode,
                             TopNNode, UnionNode, ValuesNode)
 from ..planner.symbols import Symbol, to_input_refs
 from ..types import TrinoError
+
+
+def create_table_idempotent(conn, schema: str, table: str, columns):
+    """Execution-time CTAS create that tolerates losing the race to a
+    sibling writer (the analyzer already rejected genuinely pre-existing
+    targets)."""
+    try:
+        return conn.metadata().create_table(schema, table, columns)
+    except TrinoError as e:
+        if e.code != "TABLE_ALREADY_EXISTS":
+            raise
+        return conn.metadata().get_table_handle(schema, table)
 
 
 class PhysicalPipeline:
@@ -78,7 +91,10 @@ class LocalExecutionPlanner:
                  dynamic_filtering: bool = True,
                  hash_grouping: bool = True,
                  scan_coalesce: bool = True,
-                 matmul_max_key_range: int = 1024):
+                 matmul_max_key_range: int = 1024,
+                 hybrid_join: bool = True,
+                 hybrid_join_fanout: int = 0,
+                 hybrid_join_max_depth: int = 3):
         self.metadata = metadata
         self.device = device
         self.desired_splits = desired_splits
@@ -95,6 +111,11 @@ class LocalExecutionPlanner:
         #: encode (``matmul_join_max_key_range``) — the operator's
         #: runtime re-check of the cost model's range estimate
         self.matmul_max_key_range = matmul_max_key_range
+        #: dynamic hybrid hash join knobs (``hybrid_join_*`` session
+        #: properties): graceful build degradation under memory pressure
+        self.hybrid_join = hybrid_join
+        self.hybrid_join_fanout = hybrid_join_fanout
+        self.hybrid_join_max_depth = hybrid_join_max_depth
         self.pipelines: List[PhysicalPipeline] = []
         # scan-node id -> [(channel, DynamicFilter)] attachments
         self._scan_dfs: Dict[int, List] = {}
@@ -109,6 +130,25 @@ class LocalExecutionPlanner:
         if self.memory_pool is None:
             return None
         return self.memory_pool.create_context(name)
+
+    def _memory_constrained(self) -> bool:
+        """True when the query runs under memory pressure management
+        (spill on): the join probe then keeps one page in flight, since
+        its pending buffers are invisible to the pool's reserve/revoke
+        machinery."""
+        return self.memory_pool is not None \
+            and self.memory_pool.spill_enabled
+
+    def _hybrid_opts(self, join_type: str) -> Optional[Dict]:
+        """HashBuilderOperator ``hybrid`` options, or None when hybrid
+        degradation is off. FULL OUTER stays wholesale: its
+        unmatched-build tail needs the complete index in one piece. (The
+        JAX engine also passes the history-based statistics' spill hint
+        of the node's last run; this engine plans with ``hbo=None``.)"""
+        if not self.hybrid_join or join_type == "full":
+            return None
+        return {"fanout": self.hybrid_join_fanout,
+                "max_depth": self.hybrid_join_max_depth}
 
     def plan(self, root: OutputNode) -> LocalExecutionPlan:
         ops, layout, types_ = self.visit(root.source)
@@ -249,7 +289,8 @@ class LocalExecutionPlanner:
             btypes, build_keys, bridge, self.device,
             memory_context=self._mem_ctx("join-build"),
             dynamic_filters=[(blayout[rs.name], df)
-                             for rs, df in build_dfs]))
+                             for rs, df in build_dfs],
+            hybrid=self._hybrid_opts(join_type)))
         self.pipelines.append(PhysicalPipeline(bops))
 
         filter_fn = None
@@ -271,12 +312,14 @@ class LocalExecutionPlanner:
             pops.append(MatmulJoinOperator(
                 ptypes, probe_keys, bridge, join_type, filter_fn,
                 max_lanes=self.join_max_lanes,
+                memory_limited=self._memory_constrained(),
                 max_key_range=self.matmul_max_key_range,
                 strategy_detail=strategy_detail))
         else:
             pops.append(LookupJoinOperator(
                 ptypes, probe_keys, bridge, join_type, filter_fn,
-                max_lanes=self.join_max_lanes))
+                max_lanes=self.join_max_lanes,
+                memory_limited=self._memory_constrained()))
         out_layout = dict(playout)
         out_types = ptypes
         if join_type not in ("semi", "anti"):
@@ -438,6 +481,23 @@ class LocalExecutionPlanner:
             out_types.append(out_sym.type)
         return ops, new_layout, out_types
 
+    def _v_TableWriterNode(self, node):
+        from ..ops.operator import TableWriterOperator
+
+        ops, layout, types_ = self.visit(node.source)
+        conn = self.metadata.connectors[node.catalog]
+        if node.create:
+            # CTAS creates the target here, at execution time — EXPLAIN
+            # and failed planning never mutate metadata
+            handle = create_table_idempotent(
+                conn, node.schema, node.table_name, node.columns)
+        else:
+            handle = conn.metadata().get_table_handle(node.schema,
+                                                      node.table_name)
+        ops.append(TableWriterOperator(conn.page_sink(handle, node.columns),
+                                       self.device))
+        return ops, {node.rows_symbol.name: 0}, [T.BIGINT]
+
     def _v_IntersectNode(self, node: IntersectNode):
         return self._set_semantics_join(node, "semi")
 
@@ -457,12 +517,14 @@ class LocalExecutionPlanner:
         bridge = JoinBridge()
         bops.append(HashBuilderOperator(
             btypes, bchans, bridge, self.device,
-            memory_context=self._mem_ctx("setop-build")))
+            memory_context=self._mem_ctx("setop-build"),
+            hybrid=self._hybrid_opts(join_type)))
         self.pipelines.append(PhysicalPipeline(bops))
         pchans = [playout[s.name] for s in left.output_symbols]
         pops.append(LookupJoinOperator(
             ptypes, pchans, bridge, join_type,
-            max_lanes=self.join_max_lanes))
+            max_lanes=self.join_max_lanes,
+            memory_limited=self._memory_constrained()))
         # distinct over the probe columns; output channels follow pchans
         # order, i.e. channel j <-> left.output_symbols[j] <-> symbols[j]
         pops.append(HashAggregationOperator(

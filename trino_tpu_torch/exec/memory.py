@@ -1,21 +1,46 @@
-"""Memory accounting: the per-query pool that operators charge.
+"""Memory governance: the per-query pool and the host-RAM and disk spill
+tiers.
 
-Reference analog: ``memory/MemoryPool.java`` (per-query reservations)
-and ``lib/trino-memory-context`` (the memory-context tree charged by
-operators). The scarce resource is device memory: operators reserve the
-footprint of the device pages they retain, and a reservation over the
-query's ``query_max_memory_bytes`` fails with EXCEEDED_LOCAL_MEMORY_LIMIT.
+Reference analog: ``memory/MemoryPool.java`` (per-query reservations),
+``lib/trino-memory-context`` (the memory-context tree charged by
+operators), ``execution/MemoryRevokingScheduler.java:48`` (pool pressure
+-> revoke the largest revocable operators) and
+``spiller/FileSingleStreamSpiller.java`` (the disk spill target with its
+checksummed page frames).
 
-The JAX engine's spill tiers (device -> host RAM -> disk), revocation
-(and with it the hybrid hash join's partitioned build) and the node-wide
-pool are not ported yet: a session with ``spill_enabled`` raises
-NOT_SUPPORTED.
+The design is the JAX engine's (``trino_tpu/exec/memory.py``). The scarce
+resource is device memory: operators reserve the footprint of the device
+pages they retain. Spill degrades in two tiers — device -> host (a
+``DevicePage`` parked as numpy arrays in a ``SpilledPage``) and host ->
+disk (a ``DiskSpilledPage`` holding a CRC-framed, atomically written
+spill file; see ``serde.spill_frame``) — so a query under pressure
+degrades instead of failing. A reservation that would exceed the query's
+``query_max_memory_bytes`` first revokes the query's own revocable
+contexts largest-first (when ``spill_enabled``); still over =>
+MemoryExceededError (EXCEEDED_LOCAL_MEMORY_LIMIT). Host-RAM residency of
+spilled state is tracked by a ``HostSpillLedger``; crossing its limit
+(``spill_host_memory_bytes``) demotes the largest parked pages to disk
+when ``spill_to_disk_enabled``.
+
+A parked page remembers the device it came from and goes back there, so a
+runner on ``cuda:1`` reloads onto ``cuda:1``, not the default device. The
+node-wide pool shared by concurrent queries (and the memory killer on top
+of it) comes with distribution.
+
+Locking: the pool lock and context locks are never held together —
+revoke callbacks run under the victim context's lock only, and pool
+bookkeeping for the freed bytes happens after the context lock is
+released. Operators mutate spillable state only under their context lock.
 """
 
 from __future__ import annotations
 
+import os
 import threading
-from typing import Dict, List
+import weakref
+from typing import Callable, Dict, List, Optional
+
+import numpy as np
 
 from ..types import TrinoError
 
@@ -25,7 +50,7 @@ class MemoryExceededError(TrinoError):
         super().__init__(
             f"Query exceeded per-query memory limit of {limit} bytes "
             f"(reserved {reserved}, requested {requested}); "
-            "raise query_max_memory_bytes",
+            "raise query_max_memory_bytes or enable spill_enabled",
             "EXCEEDED_LOCAL_MEMORY_LIMIT")
         self.requested = requested
         self.reserved = reserved
@@ -48,67 +73,465 @@ def default_node_memory_bytes(device, fallback: int = 16 << 30) -> int:
 
 def device_page_bytes(page) -> int:
     """Accounted device footprint of a DevicePage: padded columns + null
-    masks + the valid mask."""
+    masks + the valid mask. Disk-parked pages carry their recorded
+    footprint (their arrays are not in RAM to measure)."""
+    recorded = getattr(page, "hbm_bytes", None)
+    if recorded is not None:
+        return recorded
     cap = page.capacity
     total = cap  # valid mask (bool = 1 byte)
-    for c in page.cols:
-        total += cap * c.element_size()
+    for c in page.cols:  # torch tensors on the device, numpy when parked
+        total += cap * c.itemsize
         total += cap  # null mask
     return total
 
 
+class SpilledPage:
+    """A DevicePage parked in host RAM.
+
+    Live lanes are compacted to the smallest power-of-two capacity on the
+    device (one ``nonzero`` and one gather per column) before the copy to
+    the host: device pages are often mostly dead lanes (filtered rows,
+    partials padded to their input capacity), so compaction shrinks both
+    the host footprint and the device memory needed to bring the page
+    back. ``device`` is where ``to_device`` puts it back."""
+
+    __slots__ = ("types", "cols", "nulls", "valid", "dictionaries",
+                 "device", "__weakref__")
+
+    def __init__(self, page):
+        import torch
+
+        from ..block import padded_size
+
+        self.types = list(page.types)
+        self.dictionaries = list(page.dictionaries)
+        self.device = page.device
+        keep = torch.nonzero(page.valid).squeeze(1)
+        k = int(keep.shape[0])
+        cap = padded_size(k)
+        if cap < page.capacity:
+            self.cols = [np_pad(c[keep].cpu().numpy(), cap)
+                         for c in page.cols]
+            self.nulls = [np_pad(n[keep].cpu().numpy(), cap)
+                          for n in page.nulls]
+            v = np.zeros(cap, dtype=bool)
+            v[:k] = True
+            self.valid = v
+        else:
+            self.cols = [c.cpu().numpy() for c in page.cols]
+            self.nulls = [n.cpu().numpy() for n in page.nulls]
+            self.valid = page.valid.cpu().numpy()
+
+    @classmethod
+    def from_host(cls, types, cols, nulls, valid, dictionaries,
+                  device) -> "SpilledPage":
+        """A page over host arrays already compacted and padded; it
+        reloads onto ``device``."""
+        page = cls.__new__(cls)
+        page.types = list(types)
+        page.dictionaries = list(dictionaries)
+        page.device = device
+        page.cols, page.nulls, page.valid = list(cols), list(nulls), valid
+        return page
+
+    @property
+    def capacity(self) -> int:
+        return int(self.valid.shape[0])
+
+    def host_bytes(self) -> int:
+        return sum(c.nbytes for c in self.cols) \
+            + sum(n.nbytes for n in self.nulls) + self.valid.nbytes
+
+    def host(self) -> "SpilledPage":
+        """An in-RAM view of this page (disk-parked pages load here)."""
+        return self
+
+    def to_device(self):
+        import torch
+
+        from ..block import DevicePage
+
+        def up(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+        return DevicePage(list(self.types), [up(c) for c in self.cols],
+                          [up(n) for n in self.nulls], up(self.valid),
+                          list(self.dictionaries))
+
+
+def np_pad(a: np.ndarray, cap: int, fill: bool = False) -> np.ndarray:
+    """``a`` padded to ``cap`` lanes with zeros (with ``fill`` for a bool
+    array)."""
+    if a.shape[0] == cap:
+        return a
+    out = np.full(cap, fill, dtype=bool) if a.dtype == bool \
+        else np.zeros(cap, dtype=a.dtype)
+    out[:a.shape[0]] = a
+    return out
+
+
+class DiskSpilledPage(SpilledPage):
+    """A SpilledPage demoted to a per-query spill file: the arrays live
+    on disk in one CRC-checked frame (``serde.spill_frame``), written
+    atomically; only types, dictionaries, device and footprint stay in
+    RAM (dictionaries are shared host objects — the page reloads in this
+    process, so pools need not be serialized).
+
+    Reference analog: ``spiller/FileSingleStreamSpiller.java`` — the
+    tier below host RAM."""
+
+    __slots__ = ("path", "_capacity", "hbm_bytes", "disk_bytes")
+
+    def __init__(self, spilled: SpilledPage, path: str):
+        # deliberately no super().__init__: the array slots stay unset
+        self.types = list(spilled.types)
+        self.dictionaries = list(spilled.dictionaries)
+        self.device = spilled.device
+        self.path = path
+        self._capacity = spilled.capacity
+        self.hbm_bytes = device_page_bytes(spilled)
+        self.disk_bytes = 0  # set by DiskSpiller after the write
+
+    @property
+    def capacity(self) -> int:
+        return self._capacity
+
+    def host(self) -> SpilledPage:
+        """Load the frame back into an in-RAM SpilledPage."""
+        from .serde import read_spill_file
+
+        cols, nulls, valid = read_spill_file(self.path)
+        return SpilledPage.from_host(self.types, cols, nulls, valid,
+                                     self.dictionaries, self.device)
+
+    def to_device(self):
+        return self.host().to_device()
+
+
+class HostSpillLedger:
+    """Live host-RAM bytes held by a query's SpilledPages. Charged at
+    spill time and discharged by a weakref finalizer when the parked
+    page is dropped (uploaded back or demoted), so residency tracks
+    actual lifetime, not call sites.
+
+    The ledger also tracks the operator page lists holding parked pages
+    (with the context lock guarding each), so over-limit demotion can
+    run across operator lists: the operator that spills last is often
+    not the one parking the biggest pages (reference:
+    MemoryRevokingScheduler picking victims pool-wide)."""
+
+    def __init__(self, limit_bytes: Optional[int] = None):
+        self.limit_bytes = limit_bytes
+        self.resident_bytes = 0
+        self.peak_bytes = 0
+        self.cross_list_demotions = 0
+        # reentrant: dropping a SpilledPage reference can fire its
+        # ``_discharge`` finalizer on the dropping thread at any
+        # allocation/decref point — including while this lock is held
+        self._lock = threading.RLock()
+        #: (pages list, guarding context lock, owning QueryMemoryPool);
+        #: entries die with their pool (untrack_pool at close)
+        self._tracked: List[tuple] = []
+
+    def charge(self, page: SpilledPage) -> None:
+        nbytes = page.host_bytes()
+        with self._lock:
+            self.resident_bytes += nbytes
+            self.peak_bytes = max(self.peak_bytes, self.resident_bytes)
+        weakref.finalize(page, self._discharge, nbytes)
+
+    def _discharge(self, nbytes: int) -> None:
+        with self._lock:
+            self.resident_bytes -= nbytes
+
+    def over_limit(self) -> bool:
+        with self._lock:
+            return self.limit_bytes is not None \
+                and self.resident_bytes > self.limit_bytes
+
+    # -- cross-operator-list demotion -----------------------------------
+
+    def track(self, pages: List, lock, pool: "QueryMemoryPool") -> None:
+        """Register an operator's revocable page list as a demotion
+        candidate (idempotent per list)."""
+        if pool.disk_spiller is None:
+            return  # its pages can never demote — don't scan them
+        with self._lock:
+            for ps, _, _ in self._tracked:
+                if ps is pages:
+                    return
+            self._tracked.append((pages, lock, pool))
+
+    def untrack_pool(self, pool: "QueryMemoryPool") -> None:
+        with self._lock:
+            dropped = [t for t in self._tracked if t[2] is pool]
+            self._tracked = [t for t in self._tracked
+                             if t[2] is not pool]
+        # the entries held the last strong refs to their page lists:
+        # release outside the lock so the pages' discharge finalizers
+        # (which take it) fire lock-free
+        del dropped
+
+    def demote_across(self, exclude: Optional[List] = None) -> None:
+        """Demote in-RAM SpilledPages of other tracked lists,
+        largest-first, while over limit. Foreign context locks are taken
+        non-blocking: an operator actively mutating its state is skipped
+        rather than deadlocked against (the caller already holds its own
+        context lock)."""
+        if not self.over_limit():
+            return
+        with self._lock:
+            tracked = list(self._tracked)
+        held = []
+        demoted = 0
+        try:
+            for pages, lock, pool in tracked:
+                if pages is exclude:
+                    continue
+                if not lock.acquire(blocking=False):
+                    continue
+                if pool.disk_spiller.closed:
+                    lock.release()  # pool closed after the snapshot
+                    continue
+                held.append((pages, lock, pool))
+            candidates = sorted(
+                ((i, pages, pool)
+                 for pages, _, pool in held
+                 for i, p in enumerate(pages)
+                 if isinstance(p, SpilledPage)
+                 and not isinstance(p, DiskSpilledPage)),
+                key=lambda t: -t[1][t[0]].host_bytes())
+            for i, pages, pool in candidates:
+                if not self.over_limit():
+                    break
+                try:
+                    pages[i] = pool.disk_spiller.spill(pages[i])
+                except SpillerClosedError:
+                    continue  # close() raced the spill; nothing leaked
+                demoted += 1
+        finally:
+            for _, lock, _ in held:
+                lock.release()
+        if demoted:
+            with self._lock:
+                self.cross_list_demotions += demoted
+
+
+class SpillerClosedError(RuntimeError):
+    """A demotion raced the owning query's close: the spill directory is
+    gone and must not be recreated."""
+
+
+def spill_root() -> str:
+    """Where spill directories go: ``TRINO_TPU_SPILL_DIR``, else
+    ``trino_tpu_torch_spill`` under the process's temporary directory
+    (its own name, so a test run of both engines never shares one).
+    Read per spiller, not at import: embedders may set it later."""
+    import tempfile
+
+    return os.environ.get("TRINO_TPU_SPILL_DIR") or os.path.join(
+        tempfile.gettempdir(), "trino_tpu_torch_spill")
+
+
+class DiskSpiller:
+    """Per-query spill-file manager: one directory per query under
+    ``spill_root()/<pid>``, one CRC-framed file per demoted page, atomic
+    writes (reference: ``FileSingleStreamSpiller`` + ``SpillerFactory``'s
+    per-query directories)."""
+
+    def __init__(self, query_id: str = "q"):
+        self.query_id = query_id
+        self._dir: Optional[str] = None
+        self._seq = 0
+        self._lock = threading.Lock()
+        self.closed = False
+        self.spill_events = 0
+        self.spilled_bytes = 0       # uncompressed bytes demoted
+        self.file_bytes = 0          # on-disk (compressed) bytes
+
+    def _next_path(self) -> str:
+        import tempfile
+
+        with self._lock:
+            if self.closed:
+                raise SpillerClosedError("spiller closed")
+            if self._dir is None:
+                base = os.path.join(spill_root(), str(os.getpid()))
+                os.makedirs(base, exist_ok=True)
+                self._dir = tempfile.mkdtemp(
+                    prefix=f"{self.query_id}.", dir=base)
+            self._seq += 1
+            return os.path.join(self._dir, f"spill-{self._seq}.bin")
+
+    def spill(self, page: SpilledPage) -> DiskSpilledPage:
+        from .serde import write_spill_file
+
+        path = self._next_path()
+        disk = DiskSpilledPage(page, path)
+        nbytes = write_spill_file(path, page.cols, page.nulls, page.valid)
+        disk.disk_bytes = nbytes
+        with self._lock:
+            self.spill_events += 1
+            self.spilled_bytes += page.host_bytes()
+            self.file_bytes += nbytes
+        # the file dies with the page object (upload consumed it) or at
+        # close(), whichever first
+        weakref.finalize(disk, _remove_quiet, path)
+        return disk
+
+    def stats(self) -> Dict[str, int]:
+        with self._lock:
+            return {"disk_spill_events": self.spill_events,
+                    "disk_spilled_bytes": self.spilled_bytes,
+                    "disk_file_bytes": self.file_bytes}
+
+    def close(self):
+        import shutil
+
+        with self._lock:
+            self.closed = True
+            d, self._dir = self._dir, None
+        if d is not None:
+            shutil.rmtree(d, ignore_errors=True)
+
+
+def _remove_quiet(path: str):
+    try:
+        os.remove(path)
+    except FileNotFoundError:
+        pass
+
+
+def spill_pages(pages: List, pool: "QueryMemoryPool" = None,
+                lock=None) -> int:
+    """Convert DevicePage entries to SpilledPage in place (caller holds
+    the owning context's lock); returns the device bytes freed. With a
+    pool, host residency is charged to its ledger and — when the ledger
+    is over its limit and disk spill is enabled — the largest parked
+    pages demote to the disk tier, in this list first and then across
+    every other tracked operator list. ``lock`` is the context lock
+    guarding ``pages``: passing it registers the list so other
+    operators' over-limit demotions can reach these pages too."""
+    from ..block import DevicePage
+
+    freed = 0
+    for i, p in enumerate(pages):
+        if isinstance(p, DevicePage):
+            freed += device_page_bytes(p)
+            spilled = SpilledPage(p)
+            if pool is not None:
+                pool.host_ledger.charge(spilled)
+            pages[i] = spilled
+    if pool is not None:
+        if lock is not None:
+            pool.host_ledger.track(pages, lock, pool)
+        pool.maybe_demote(pages)
+    return freed
+
+
 def reserve_and_append(ctx: "OperatorMemoryContext", pages: List, page):
-    """The add_input discipline of operators that retain their input:
-    charge the page, then keep it."""
+    """The add_input discipline of spillable operators: charge the page,
+    then publish it to the revocable list under the context lock."""
     ctx.reserve(device_page_bytes(page))
-    pages.append(page)
+    with ctx.lock:
+        pages.append(page)
 
 
-def prepare_finish(ctx: "OperatorMemoryContext", pages: List) -> int:
-    """The accounted bytes of the retained pages, which the operator's
-    finish pass now owns; the caller reserves its finish transient (~2x
-    this, for the concatenation and its result). The JAX engine parks
-    the pages on the host first when that transient would not fit; with
-    no spill tier here, the reservation fails instead."""
-    return sum(device_page_bytes(p) for p in pages)
+def prepare_finish(ctx: "OperatorMemoryContext", pages: List):
+    """Shared finish-time transition for spillable operators: their pages
+    stop being revocable (the finish pass owns them), so if the finish
+    transient (~2x total for concat + result) would not fit alongside the
+    current reservations, park everything on the host first — spill
+    compacts dead lanes, so totals are recomputed from parked sizes (=
+    what re-upload actually costs). Returns (total, uploads)."""
+    pool = ctx.pool
+    with ctx.lock:
+        total = sum(device_page_bytes(p) for p in pages)
+        uploads = sum(device_page_bytes(p) for p in pages
+                      if isinstance(p, SpilledPage))
+        freed = 0
+        if pool.spill_enabled and \
+                pool.reserved + uploads + 2 * total > pool.max_bytes:
+            freed = spill_pages(pages, pool, ctx.lock)
+            total = sum(device_page_bytes(p) for p in pages)
+            uploads = total
+        # clear the callback inside the lock: a concurrent pool revoke
+        # between the totals above and here would invalidate them
+        ctx.set_revoke_callback(None)
+    if freed:
+        pool.record_spill(freed)
+        ctx.free(freed)
+    return total, uploads
 
 
 class OperatorMemoryContext:
     """One operator's slice of the query pool (reference:
-    ``memory/context/LocalMemoryContext``)."""
+    ``memory/context/LocalMemoryContext``).
+
+    ``lock`` guards the owner's spillable state; a revoke callback runs
+    under it. ``reserve``/``free`` must be called without holding it."""
 
     def __init__(self, pool: "QueryMemoryPool", name: str):
         self.pool = pool
         self.name = name
+        self.lock = threading.RLock()
         self.reserved = 0
         self.peak = 0               # high-water mark (survives close())
+        self.revocable = 0          # portion of reserved revoke can free
+        self._revoke_cb: Optional[Callable[[], int]] = None
 
-    def reserve(self, nbytes: int):
+    def set_revoke_callback(self, cb: Optional[Callable[[], int]]):
+        """cb() spills the owner's revocable state to the host and
+        returns the bytes freed (reference: Operator.startMemoryRevoke)."""
+        self._revoke_cb = cb
+
+    def reserve(self, nbytes: int, revocable: bool = True):
         if nbytes <= 0:
             return
-        self.pool._reserve(self, nbytes)
+        self.pool._reserve(self, nbytes, revocable)
 
-    def free(self, nbytes: int):
+    def free(self, nbytes: int, revocable: bool = True):
         if nbytes <= 0:
             return
-        self.pool._free(self, nbytes)
+        self.pool._free(self, nbytes, revocable)
 
     def close(self):
         if self.reserved:
-            self.pool._free(self, self.reserved)
+            self.pool._free(self, self.reserved, revocable=False)
+            self.revocable = 0
 
 
 class QueryMemoryPool:
-    """Per-query device-memory accounting (reference:
-    ``memory/MemoryPool.java``'s per-query reservation +
+    """Per-query device-memory accounting with synchronous revocation
+    (reference: ``memory/MemoryPool.java``'s per-query reservation +
     ``QueryContext``)."""
 
-    def __init__(self, max_bytes: int):
+    def __init__(self, max_bytes: int, spill_enabled: bool = False,
+                 spill_to_disk: bool = False,
+                 host_spill_limit: Optional[int] = None,
+                 query_id: str = "q"):
         self.max_bytes = int(max_bytes)
+        self.spill_enabled = spill_enabled
+        self.spill_to_disk = spill_to_disk
+        self.query_id = query_id
         self.reserved = 0
         self.peak_bytes = 0
+        self.spill_events = 0
+        self.spilled_bytes = 0
+        self.partition_spills = 0       # hybrid-join partitions demoted
+        self.partition_spilled_bytes = 0
+        #: fault injection: a period of reserve calls — every
+        #: ``countdown``-th reservation triggers one full-pressure
+        #: revocation, so revocation lands mid-build and mid-probe
+        #: without shrinking the pool
+        self.fault_revoke_countdown: Optional[int] = None
+        self._fault_revoke_left: Optional[int] = None
         self._lock = threading.Lock()
         self._contexts: List[OperatorMemoryContext] = []
+        self.host_ledger = HostSpillLedger(host_spill_limit)
+        self.disk_spiller = DiskSpiller(query_id) if spill_to_disk \
+            else None
 
     def create_context(self, name: str) -> OperatorMemoryContext:
         ctx = OperatorMemoryContext(self, name)
@@ -116,42 +539,171 @@ class QueryMemoryPool:
             self._contexts.append(ctx)
         return ctx
 
-    def _reserve(self, ctx: OperatorMemoryContext, nbytes: int):
+    # -- spill tiers ----------------------------------------------------
+
+    def maybe_demote(self, pages: List):
+        """Demote the largest in-RAM SpilledPages to disk while the host
+        ledger is over its limit: this operator's own list first (its
+        context lock is already held by the caller), then across every
+        other tracked operator list."""
+        if self.disk_spiller is None or not self.host_ledger.over_limit():
+            return
+        self._demote_list_locked(pages)
+        if self.host_ledger.over_limit():
+            self.host_ledger.demote_across(exclude=pages)
+
+    def _demote_list_locked(self, pages: List):
+        """Demote one list largest-first (caller holds the list's
+        guarding context lock)."""
+        order = sorted(
+            (i for i, p in enumerate(pages)
+             if isinstance(p, SpilledPage)
+             and not isinstance(p, DiskSpilledPage)),
+            key=lambda i: -pages[i].host_bytes())
+        for i in order:
+            if not self.host_ledger.over_limit():
+                return
+            # the replaced SpilledPage's finalizer discharges the
+            # ledger as soon as the reference drops
+            pages[i] = self.disk_spiller.spill(pages[i])
+
+    # -- internal (called by contexts) ----------------------------------
+
+    def _maybe_fault_revoke(self):
+        """Injected revocation: every ``countdown``-th reserve call
+        revokes everything revocable."""
+        with self._lock:
+            period = self.fault_revoke_countdown
+            if period is None:
+                return
+            left = self._fault_revoke_left
+            left = period - 1 if left is None else left - 1
+            if left > 0:
+                self._fault_revoke_left = left
+                return
+            self._fault_revoke_left = period
+        self.revoke_up_to(self.max_bytes)
+
+    def _reserve(self, ctx: OperatorMemoryContext, nbytes: int,
+                 revocable: bool):
+        self._maybe_fault_revoke()
+        # revoke-until-fit: the target is re-derived under the lock each
+        # round and the request fails only once revocation stops making
+        # progress
+        while True:
+            with self._lock:
+                if self.reserved + nbytes <= self.max_bytes:
+                    self._admit_locked(ctx, nbytes, revocable)
+                    return
+                if not self.spill_enabled:
+                    raise MemoryExceededError(nbytes, self.reserved,
+                                              self.max_bytes)
+                needed = self.reserved + nbytes - self.max_bytes
+            # the requester's own state first: self-revoke is
+            # deadlock-free (its RLock is reentrant on this thread) and
+            # the largest state usually belongs to the operator asking
+            if self.revoke_up_to(needed, prefer=ctx) <= 0:
+                break
         with self._lock:
             if self.reserved + nbytes > self.max_bytes:
                 raise MemoryExceededError(nbytes, self.reserved,
                                           self.max_bytes)
-            self.reserved += nbytes
-            ctx.reserved += nbytes
-            ctx.peak = max(ctx.peak, ctx.reserved)
-            self.peak_bytes = max(self.peak_bytes, self.reserved)
+            self._admit_locked(ctx, nbytes, revocable)
 
-    def _free(self, ctx: OperatorMemoryContext, nbytes: int):
+    def revoke_up_to(self, needed: int, prefer=None) -> int:
+        """Spill revocable contexts largest-first until ``needed`` bytes
+        came free (or no revocable state remains); returns the bytes
+        actually freed. Runs without the pool lock held: callbacks move
+        whole operator states device -> host."""
+        with self._lock:
+            candidates = sorted(self._contexts,
+                                key=lambda c: (c is not prefer,
+                                               -c.revocable))
+        total_freed = 0
+        for c in candidates:
+            if total_freed >= needed:
+                break
+            if c.revocable <= 0:
+                continue
+            # partial revocation: a callback may free only a slice of its
+            # state per call (the hybrid hash join demotes one build
+            # partition at a time) — keep asking the same context until
+            # the target is met or it stops making progress
+            while total_freed < needed:
+                with c.lock:
+                    cb = c._revoke_cb
+                    freed = cb() if cb is not None else 0
+                if freed <= 0:
+                    break
+                total_freed += freed
+                self.record_spill(freed)
+                self._free(c, freed, revocable=True)
+        return total_freed
+
+    def _admit_locked(self, ctx, nbytes, revocable):
+        self.reserved += nbytes
+        ctx.reserved += nbytes
+        ctx.peak = max(ctx.peak, ctx.reserved)
+        if revocable:
+            ctx.revocable += nbytes
+        self.peak_bytes = max(self.peak_bytes, self.reserved)
+
+    def _free(self, ctx: OperatorMemoryContext, nbytes: int,
+              revocable: bool):
         with self._lock:
             nbytes = min(nbytes, ctx.reserved)
             self.reserved -= nbytes
             ctx.reserved -= nbytes
+            if revocable:
+                ctx.revocable = max(0, ctx.revocable - nbytes)
+
+    def record_spill(self, freed: int):
+        with self._lock:
+            self.spill_events += 1
+            self.spilled_bytes += freed
+
+    def record_partition_spill(self, freed: int, parts: int = 1):
+        """One hybrid-join build partition demoted off the device."""
+        with self._lock:
+            self.partition_spills += parts
+            self.partition_spilled_bytes += freed
 
     def close(self):
-        """Release every context's residue (end of the query's life)."""
+        """Release every context's residue and the disk spill directory
+        (end of the query's life)."""
         with self._lock:
             contexts = list(self._contexts)
         for c in contexts:
             c.close()
+        # drop this query's page lists from the ledger's demotion
+        # candidates before the spill directory dies with the spiller
+        self.host_ledger.untrack_pool(self)
+        if self.disk_spiller is not None:
+            self.disk_spiller.close()
+
+    # -- observability ---------------------------------------------------
 
     def stats(self) -> Dict[str, int]:
-        return {
+        out = {
             "reserved_bytes": self.reserved,
             "peak_bytes": self.peak_bytes,
             "max_bytes": self.max_bytes,
+            "spill_events": self.spill_events,
+            "spilled_bytes": self.spilled_bytes,
+            "partition_spills": self.partition_spills,
+            "partition_spilled_bytes": self.partition_spilled_bytes,
         }
+        if self.disk_spiller is not None:
+            out.update(self.disk_spiller.stats())
+        return out
 
 
-def pool_from_session(session) -> QueryMemoryPool:
+def pool_from_session(session, query_id: str = "q") -> QueryMemoryPool:
     from .. import session_properties as SP
 
-    if SP.value(session, "spill_enabled") \
-            or SP.value(session, "spill_to_disk_enabled"):
-        raise TrinoError("spilling is not ported to the torch engine yet",
-                         "NOT_SUPPORTED")
-    return QueryMemoryPool(SP.value(session, "query_max_memory_bytes"))
+    return QueryMemoryPool(
+        SP.value(session, "query_max_memory_bytes"),
+        SP.value(session, "spill_enabled"),
+        SP.value(session, "spill_to_disk_enabled"),
+        host_spill_limit=SP.value(session, "spill_host_memory_bytes"),
+        query_id=query_id)

@@ -386,7 +386,7 @@ class HashAggregationOperator(Operator):
         self.hash_grouping = hash_grouping
         #: pages grouped per path, for EXPLAIN/observability
         self.path_counts = {"hash": 0, "sort": 0}
-        self._partials: List[DevicePage] = []
+        self._partials: List = []  # DevicePage | SpilledPage entries
         self._emitted = False
         self._done = False
         self._group_dicts: List = [None] * len(group_channels)
@@ -403,6 +403,8 @@ class HashAggregationOperator(Operator):
         #: (pool uid, size) -> (rank LUT, inverse LUT), per operator
         self._rank_cache: dict = {}
         self._ctx = memory_context
+        if self._ctx is not None:
+            self._ctx.set_revoke_callback(self._revoke)
 
     # output layout: group key columns, then state/final columns per agg
     @property
@@ -444,11 +446,20 @@ class HashAggregationOperator(Operator):
                         self._state_dicts[k] = d
                 k += 1
         partial = self._aggregate_page(page, intermediate=intermediate)
-        if self._ctx is not None:
-            from ..exec.memory import device_page_bytes
+        if self._ctx is None:
+            self._partials.append(partial)
+            return
+        from ..exec.memory import reserve_and_append
 
-            self._ctx.reserve(device_page_bytes(partial))
-        self._partials.append(partial)
+        reserve_and_append(self._ctx, self._partials, partial)
+
+    def _revoke(self) -> int:
+        """Park the device partials in host RAM (called by the pool under
+        this context's lock; reference: Operator.startMemoryRevoke),
+        overflowing to the disk tier when the host ledger is full."""
+        from ..exec.memory import spill_pages
+
+        return spill_pages(self._partials, self._ctx.pool, self._ctx.lock)
 
     def _aggregate_page(self, page: DevicePage,
                         intermediate: bool) -> DevicePage:
@@ -582,6 +593,14 @@ class HashAggregationOperator(Operator):
         for i in range(nkeys):
             if self._group_dicts[i] is None and types[i].is_pooled:
                 self._group_dicts[i] = Dictionary()
+        if self._ctx is not None:
+            # once merging starts the partials stop being revocable; if
+            # the single-chunk transient (concat + result ~= 2x total)
+            # would not fit, prepare_finish parks everything on the host
+            # and the chunked merge below brings it back under budget
+            from ..exec.memory import prepare_finish
+
+            prepare_finish(self._ctx, self._partials)
         if not self._partials:
             # no input: zero groups — except global aggregation, which
             # emits exactly one group of empty-input states (count=0,
@@ -598,13 +617,16 @@ class HashAggregationOperator(Operator):
             return DevicePage(types, cols, nulls, valid,
                               list(self._group_dicts)
                               + self._state_dict_tail())
-        from ..exec.memory import device_page_bytes
+        from ..exec.memory import SpilledPage, device_page_bytes
 
         parts = self._partials
-        if len(parts) == 1 and self.step != "partial":
+        if len(parts) == 1 and self.step != "partial" \
+                and not isinstance(parts[0], SpilledPage):
             return parts[0]
         # merge in budget-bounded chunks: each round touches at most
-        # ~budget bytes of device memory (concat + result)
+        # ~budget bytes of device memory (uploads + concat), so spilled
+        # state re-enters the device chunk by chunk (reference analog:
+        # MergingHashAggregationBuilder merging sorted spill runs)
         budget = None
         if self._ctx is not None:
             # each chunk's transient is 2x its bytes (concat + result):
@@ -627,30 +649,44 @@ class HashAggregationOperator(Operator):
                 return self._merge_chunk(chunks[0])
             parts = [self._merge_chunk(c) for c in chunks]
 
-    def _merge_chunk(self, chunk: List[DevicePage]) -> DevicePage:
-        """Concatenate one chunk of partials and re-group with merge
-        semantics."""
-        from ..exec.memory import device_page_bytes
+    def _merge_chunk(self, chunk: List) -> DevicePage:
+        """Concatenate one chunk of partials (uploading spilled ones) and
+        re-group with merge semantics."""
+        from ..exec.memory import SpilledPage, device_page_bytes
 
         types = self._intermediate_types()
         total = sum(device_page_bytes(p) for p in chunk)
-        transient = 2 * total  # concat buffer + result
+        transient = 0
         if self._ctx is not None:
-            self._ctx.reserve(transient)
-        cap = padded_size(sum(p.capacity for p in chunk))
-        cols = [_pad_to(torch.cat([p.cols[i] for p in chunk]), cap)
-                for i in range(len(types))]
-        nulls = [_pad_to(torch.cat([p.nulls[i] for p in chunk]), cap)
-                 for i in range(len(types))]
-        valid = _pad_to(torch.cat([p.valid for p in chunk]), cap)
-        page = DevicePage(types, cols, nulls, valid,
-                          list(self._group_dicts) + self._state_dict_tail())
-        out = self._aggregate_page(page, intermediate=True)
+            # uploads (spilled entries re-entering the device) + concat
+            # buffer + result (bounded by the concat)
+            uploads = sum(device_page_bytes(p) for p in chunk
+                          if isinstance(p, SpilledPage))
+            transient = uploads + 2 * total
+            self._ctx.reserve(transient, revocable=False)
+        dev = [p.to_device() if isinstance(p, SpilledPage) else p
+               for p in chunk]
+        if len(dev) == 1 and self.step != "partial" and \
+                isinstance(chunk[0], SpilledPage):
+            out = dev[0]
+        else:
+            cap = padded_size(sum(p.capacity for p in dev))
+            cols = [_pad_to(torch.cat([p.cols[i] for p in dev]), cap)
+                    for i in range(len(types))]
+            nulls = [_pad_to(torch.cat([p.nulls[i] for p in dev]), cap)
+                     for i in range(len(types))]
+            valid = _pad_to(torch.cat([p.valid for p in dev]), cap)
+            page = DevicePage(
+                types, cols, nulls, valid,
+                list(self._group_dicts) + self._state_dict_tail())
+            out = self._aggregate_page(page, intermediate=True)
         if self._ctx is not None:
             # release the transient + the chunk inputs' reservations,
             # keep the merged result reserved
-            self._ctx.free(transient + total)
-            self._ctx.reserve(device_page_bytes(out))
+            freed = transient + sum(device_page_bytes(p) for p in chunk
+                                    if not isinstance(p, SpilledPage))
+            self._ctx.free(freed)
+            self._ctx.reserve(device_page_bytes(out), revocable=False)
         return out
 
     def _finalize(self, merged: DevicePage) -> DevicePage:

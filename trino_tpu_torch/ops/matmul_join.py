@@ -128,10 +128,11 @@ class MatmulJoinOperator(LookupJoinOperator):
                  probe_key_channels: Sequence[int], bridge: JoinBridge,
                  join_type: str = "inner", filter_fn=None,
                  max_lanes: Optional[int] = None,
+                 memory_limited: bool = False,
                  max_key_range: int = DEFAULT_MAX_KEY_RANGE,
                  strategy_detail: str = ""):
         super().__init__(probe_types, probe_key_channels, bridge,
-                         join_type, filter_fn, max_lanes)
+                         join_type, filter_fn, max_lanes, memory_limited)
         self.max_key_range = max_key_range
         #: the cost-model estimate that picked this strategy
         self.strategy_detail = strategy_detail

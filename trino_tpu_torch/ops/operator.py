@@ -7,10 +7,8 @@ Reference analog: ``core/trino-main/.../operator/Operator.java:21-93``
 Pages flowing between operators are ``DevicePage``s — padded torch
 batches with validity masks on one device — so a pipeline's hot ops chain
 on the device without host round-trips. Host boundaries are scans (numpy
--> device) and output (device -> numpy).
-
-Table writers are not ported yet; the local planner rejects plans that
-need them.
+-> device) and output (device -> numpy), and table writers, which bring
+each page to the host for the connector's page sink.
 """
 
 from __future__ import annotations
@@ -347,6 +345,40 @@ class DeferredPagesSourceOperator(SourceOperator):
                                         device=self.device)
         self._done = True
         return None
+
+    def is_finished(self) -> bool:
+        return self._done
+
+
+class TableWriterOperator(Operator):
+    """Feeds pages to a ConnectorPageSink; at finish emits one BIGINT row
+    with the written count, on ``device`` (reference:
+    operator/TableWriterOperator.java + TableFinishOperator.java — commit
+    folded into sink.finish())."""
+
+    def __init__(self, sink, device):
+        self.sink = sink
+        self.device = device
+        self.rows = 0
+        self._emitted = False
+        self._done = False
+
+    def add_input(self, page: DevicePage):
+        host = page.to_page()
+        if host.num_rows:
+            self.rows += host.num_rows
+            self.sink.append_page(host)
+
+    def get_output(self) -> Optional[DevicePage]:
+        if not self._finishing or self._emitted:
+            return None
+        self._emitted = True
+        self._done = True
+        self.sink.finish()
+        from .. import types as T
+
+        return DevicePage.from_page(
+            Page.from_pylists([T.BIGINT], [[self.rows]]), self.device)
 
     def is_finished(self) -> bool:
         return self._done

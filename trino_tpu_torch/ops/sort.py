@@ -8,15 +8,21 @@ Ordering keys normalize to (null-bit, int64) operand pairs
 stable argsorts, from the last key operand to the first, and every
 payload column is gathered through it.
 
-The JAX engine's bounded-memory host sort (taken when the whole-input
-device sort does not fit the query's memory pool) is not ported yet:
-here a sort that does not fit raises the pool's MemoryExceededError.
+Under a memory pool, ORDER BY's input is revocable (spilled to the host
+and disk tiers under pressure). When the whole-input device sort does not
+fit beside the pool's other reservations, the operator takes the JAX
+engine's bounded host sort instead: key operands per page on the device,
+live rows downloaded, one stable ``np.lexsort`` on the host, and the
+ordered rows uploaded lazily, one budget-sized chunk per driver quantum.
+That path needs no spill, so it also serves a capped query with
+``spill_enabled`` off.
 """
 
 from __future__ import annotations
 
 from typing import List, Optional, Sequence
 
+import numpy as np
 import torch
 
 from .. import types as T
@@ -75,19 +81,40 @@ class OrderByOperator(Operator):
                  sort_keys: Sequence[SortKey], memory_context=None):
         self.input_types = list(input_types)
         self.sort_keys = list(sort_keys)
-        self._pages: List[DevicePage] = []
+        self._pages: List = []  # DevicePage | SpilledPage
+        #: sorted output: DevicePages, or thunks that upload one
+        #: host-sorted chunk each
+        self._out: List = []
+        self._device = None
         self._emitted = False
         self._done = False
         self._ctx = memory_context
+        if self._ctx is not None:
+            self._ctx.set_revoke_callback(self._revoke)
 
     def add_input(self, page: DevicePage):
-        if self._ctx is not None:
-            from ..exec.memory import device_page_bytes
+        self._device = page.device
+        if self._ctx is None:
+            self._pages.append(page)
+            return
+        from ..exec.memory import reserve_and_append
 
-            self._ctx.reserve(device_page_bytes(page))
-        self._pages.append(page)
+        reserve_and_append(self._ctx, self._pages, page)
+
+    def _revoke(self) -> int:
+        from ..exec.memory import spill_pages
+
+        return spill_pages(self._pages, self._ctx.pool, self._ctx.lock)
+
+    def _pop_out(self) -> DevicePage:
+        item = self._out.pop(0)
+        # host-sorted chunks upload lazily, one per quantum, so the
+        # full sorted relation is never device-resident at once
+        return item() if callable(item) else item
 
     def get_output(self) -> Optional[DevicePage]:
+        if self._out:
+            return self._pop_out()
         if not self._finishing or self._emitted:
             if self._emitted:
                 self._done = True
@@ -96,26 +123,104 @@ class OrderByOperator(Operator):
         if not self._pages:
             self._done = True
             return None
-        out = self._sort_all()
+        self._out = self._sort_all()
         self._pages = []
         if self._ctx is not None:
             self._ctx.close()
-        return out
+        if self._out:
+            return self._pop_out()
+        self._done = True
+        return None
 
-    def _sort_all(self) -> DevicePage:
+    def _sort_all(self) -> List:
+        from ..exec.memory import SpilledPage
+
         if self._ctx is not None:
-            from ..exec.memory import device_page_bytes
+            from ..exec.memory import prepare_finish
 
-            # transient: concat + sorted copy; released when the sorted
-            # page flows downstream
-            total = sum(device_page_bytes(p) for p in self._pages)
-            self._ctx.reserve(2 * total)
-        cap = padded_size(sum(p.capacity for p in self._pages))
-        page = _concat_pages(self._pages, cap)
+            pool = self._ctx.pool
+            total, uploads = prepare_finish(self._ctx, self._pages)
+            if pool.reserved + uploads + 2 * total > pool.max_bytes:
+                # the whole-input device sort cannot fit beside the
+                # pool's other reservations: the bounded host sort
+                return self._host_sort(pool.max_bytes // 4)
+            # transient: uploads + concat + sorted copy; released when
+            # the sorted page flows downstream
+            self._ctx.reserve(uploads + 2 * total, revocable=False)
+        pages = [p.to_device() if isinstance(p, SpilledPage) else p
+                 for p in self._pages]
+        cap = padded_size(sum(p.capacity for p in pages))
+        page = _concat_pages(pages, cap)
         key_ops = _make_key_ops(page, self.sort_keys)
         cols, nulls, valid = sorted_by(key_ops, page.cols, page.nulls,
                                        page.valid)
-        return DevicePage(page.types, cols, nulls, valid, page.dictionaries)
+        return [DevicePage(page.types, cols, nulls, valid,
+                           page.dictionaries)]
+
+    def _host_sort(self, chunk_budget: int) -> List:
+        """Bounded device-memory sort: per page, compute the key operands
+        on the device, download the live rows, then lexsort on the host
+        and re-emit the ordered rows as budget-sized DevicePages. Device
+        residency is one page (and its key operands) + one output chunk;
+        the whole relation lives in host RAM (reference analog:
+        OrderByOperator's spill-merge via FileSingleStreamSpiller, with
+        host RAM standing in for disk). The key operands are the int64
+        flipped keys of ``sortkeys.py``: their signed order is the JAX
+        engine's unsigned one, and ``np.lexsort`` is stable, so ties keep
+        their input order as the device sort does."""
+        from ..exec.memory import SpilledPage, device_page_bytes, np_pad
+
+        host_cols: List[List[np.ndarray]] = []
+        host_nulls: List[List[np.ndarray]] = []
+        host_ops: List[List[np.ndarray]] = []
+        dicts = unify_dictionaries(self._pages, len(self.input_types))
+        for p in self._pages:
+            nb = device_page_bytes(p)
+            if self._ctx is not None:
+                # one page resident at a time (plus its key operands)
+                self._ctx.reserve(2 * nb, revocable=False)
+            dev = p.to_device() if isinstance(p, SpilledPage) else p
+            ops = _make_key_ops(dev, self.sort_keys)
+            keep = torch.nonzero(dev.valid).squeeze(1)
+            host_cols.append([c[keep].cpu().numpy() for c in dev.cols])
+            host_nulls.append([n[keep].cpu().numpy() for n in dev.nulls])
+            host_ops.append([o[keep].cpu().numpy() for o in ops])
+            if self._ctx is not None:
+                self._ctx.free(2 * nb)
+        nch = len(self.input_types)
+        cols = [np.concatenate([pc[i] for pc in host_cols])
+                for i in range(nch)]
+        nulls = [np.concatenate([pn[i] for pn in host_nulls])
+                 for i in range(nch)]
+        ops = [np.concatenate([po[j] for po in host_ops])
+               for j in range(len(host_ops[0]))]
+        # np.lexsort: the last key is primary -> reverse the operands
+        order = np.lexsort(tuple(reversed(ops)))
+        n = order.shape[0]
+        # output chunk rows sized so a chunk stays within the budget
+        row_bytes = max(1, sum(c.dtype.itemsize + 1 for c in cols) + 1)
+        chunk_rows = max(1024, chunk_budget // (2 * row_bytes))
+        types_ = list(self.input_types)
+        device = self._device
+
+        def make_chunk(idx):
+            # deferred: uploads when the driver pulls this chunk, so one
+            # chunk is device-resident at a time
+            def thunk():
+                cap = padded_size(idx.shape[0])
+
+                def up(a):
+                    return torch.from_numpy(np_pad(a, cap)).to(device)
+
+                return DevicePage(types_, [up(c[idx]) for c in cols],
+                                  [up(nl[idx]) for nl in nulls],
+                                  up(np.ones(idx.shape[0], dtype=bool)),
+                                  list(dicts))
+
+            return thunk
+
+        return [make_chunk(order[s:s + chunk_rows])
+                for s in range(0, n, chunk_rows)]
 
     def is_finished(self) -> bool:
         return self._done

@@ -5,13 +5,16 @@ Reference analog: ``core/trino-main/.../testing/LocalQueryRunner.java:254``
 — the single-node, no-HTTP engine. The path is the JAX engine's
 (``trino_tpu/runner.py``: parse -> analyze -> plan -> optimize ->
 LocalExecutionPlanner -> Driver) without its plan and result caches, plan
-templates, batching and history-based statistics. It plans every
-one-device query of the JAX engine: scans (with dynamic filters from join
-builds), filter/project, UNNEST, aggregation, DISTINCT, hash joins
-(sorted-index and matmul strategies), UNION/INTERSECT/EXCEPT, scalar
-subqueries, window functions, grouped top-N, sort, TopN and
-limit/offset. Writers (CTAS, INSERT) and EXPLAIN ANALYZE raise
-NOT_SUPPORTED.
+templates, batching, history-based statistics, access control and the
+``system`` catalog (all serving work). It runs every one-device statement
+of the JAX engine: queries (scans with dynamic filters from join builds,
+filter/project, UNNEST, aggregation, DISTINCT, hash joins with the
+sorted-index and matmul strategies and the hybrid build under memory
+pressure, UNION/INTERSECT/EXCEPT, scalar subqueries, window functions,
+grouped top-N, sort, TopN, limit/offset), CTAS and INSERT, CREATE/DROP
+TABLE, DELETE (memory connector), SHOW SESSION/CATALOGS/SCHEMAS/TABLES/
+COLUMNS, SET SESSION, EXPLAIN and EXPLAIN ANALYZE. EXPLAIN ANALYZE
+VERBOSE needs the compiled-program profiler and raises NOT_SUPPORTED.
 
 The device is explicit: ``device`` defaults to ``"cuda"``, and a runner
 asked for CUDA on a machine without a GPU raises instead of running on
@@ -20,6 +23,7 @@ the CPU. Tests pass ``device="cpu"``.
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 from typing import Dict, List, Optional
 
@@ -32,7 +36,7 @@ from .planner.logical_planner import LogicalPlanner, Metadata
 from .planner.optimizer import optimize
 from .planner.plan import OutputNode, plan_tree_str
 from .sql import ast
-from .sql.analyzer import Session
+from .sql.analyzer import AnalysisError, Session
 from .sql.parser import parse_statement
 
 
@@ -65,15 +69,19 @@ class LocalQueryRunner:
                         self.session, hbo=None)
 
     def execute(self, sql: str) -> QueryResult:
-        """Run one statement: a query, EXPLAIN (the optimized plan) or
-        SET SESSION. Other statements raise NOT_SUPPORTED."""
+        """Run one statement (see the module docstring for the set)."""
         stmt = parse_statement(sql)
         if isinstance(stmt, ast.Explain):
             if stmt.analyze:
-                raise T.TrinoError("EXPLAIN ANALYZE is not ported to the "
-                                   "torch engine yet", "NOT_SUPPORTED")
-            lines = plan_tree_str(
-                self.plan_statement(stmt.statement)).splitlines()
+                return self._explain_analyze(stmt.statement,
+                                             verbose=stmt.verbose)
+            from .planner.optimizer import provenance_lines
+
+            root = self.plan_statement(stmt.statement)
+            lines = plan_tree_str(root).splitlines()
+            prov = provenance_lines(root)
+            if prov:
+                lines.extend([""] + prov)
             return QueryResult(["Query Plan"], [T.VARCHAR],
                                [(line,) for line in lines])
         if isinstance(stmt, ast.SetSession):
@@ -85,7 +93,50 @@ class LocalQueryRunner:
             SP.set_property(self.session.properties, stmt.name,
                             _eval_literal(an.analyze(stmt.value)))
             return QueryResult(["result"], [T.BOOLEAN], [(True,)])
-        if not isinstance(stmt, ast.QueryStatement):
+        if isinstance(stmt, ast.ShowSession):
+            from . import session_properties as SP
+
+            return QueryResult(
+                ["Name", "Value", "Default", "Type", "Description"],
+                [T.VARCHAR] * 5, SP.listing(self.session))
+        if isinstance(stmt, ast.ShowCatalogs):
+            return QueryResult(["Catalog"], [T.VARCHAR],
+                               [(c,) for c in
+                                sorted(self.metadata.connectors)])
+        if isinstance(stmt, ast.ShowSchemas):
+            conn = self._connector(stmt.catalog or self.session.catalog)
+            return QueryResult(["Schema"], [T.VARCHAR],
+                               [(s,) for s in
+                                sorted(conn.metadata().list_schemas())])
+        if isinstance(stmt, ast.ShowTables):
+            catalog = self.session.catalog
+            schema = self.session.schema
+            if stmt.schema:
+                parts = stmt.schema
+                schema = parts[-1]
+                if len(parts) > 1:
+                    catalog = parts[-2]
+            conn = self._connector(catalog)
+            return QueryResult(["Table"], [T.VARCHAR],
+                               [(t,) for t in
+                                sorted(conn.metadata().list_tables(schema))])
+        if isinstance(stmt, ast.ShowColumns):
+            resolved = self.metadata.resolve_table(stmt.table, self.session)
+            if resolved is None:
+                raise AnalysisError(
+                    "table '%s' does not exist" % ".".join(stmt.table))
+            _, _, _, columns = resolved
+            return QueryResult(
+                ["Column", "Type"], [T.VARCHAR, T.VARCHAR],
+                [(c.name, str(c.type)) for c in columns])
+        if isinstance(stmt, ast.CreateTable):
+            return self._create_table(stmt)
+        if isinstance(stmt, ast.DropTable):
+            return self._drop_table(stmt)
+        if isinstance(stmt, ast.Delete):
+            return self._delete(stmt)
+        if not isinstance(stmt, (ast.QueryStatement, ast.Insert,
+                                 ast.CreateTableAsSelect)):
             raise T.TrinoError(
                 f"{type(stmt).__name__} is not ported to the torch engine "
                 "yet", "NOT_SUPPORTED")
@@ -102,12 +153,128 @@ class LocalQueryRunner:
             stats = {"memory": local.memory_pool.stats(),
                      "operators": _operator_metrics(plan.drivers)}
         finally:
+            # reap spill files and free residue on success and failure
             local.memory_pool.close()
         if local.dynamic_filters:
             stats["dynamic_filters"] = [df.stats()
                                         for df in local.dynamic_filters]
         return QueryResult(plan.column_names, plan.output_types, rows,
                            stats=stats)
+
+    def _explain_analyze(self, stmt: ast.Statement,
+                         verbose: bool = False) -> QueryResult:
+        """Run the query collecting per-operator stats and render the plan,
+        a ``Query:`` line, a ``Memory:`` line (peak, spills, disk files)
+        and one line per operator per pipeline (reference:
+        operator/ExplainAnalyzeOperator.java + PlanPrinter.java)."""
+        if verbose:
+            raise T.TrinoError(
+                "EXPLAIN ANALYZE VERBOSE needs the compiled-program "
+                "profiler, which is not ported to the torch engine yet",
+                "NOT_SUPPORTED")
+        root = self.plan_statement(stmt)
+        local = self._make_local_planner()
+        pool = local.memory_pool
+        try:
+            plan = local.plan(root)
+            t0 = time.perf_counter()
+            pages = plan.execute(collect_stats=True)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            wall = time.perf_counter() - t0
+            m = pool.stats()
+        finally:
+            pool.close()
+        out_rows = sum(p.num_rows for p in pages)
+        lines = plan_tree_str(root).splitlines()
+        lines.append("")
+        lines.append(f"Query: {wall * 1e3:.1f}ms, {out_rows} rows")
+        lines.append(
+            f"Memory: peak {m['peak_bytes']} bytes, "
+            f"{m['spill_events']} spills ({m['spilled_bytes']} bytes)"
+            + (f", disk {m['disk_spill_events']} files "
+               f"({m['disk_spilled_bytes']} bytes)"
+               if m.get("disk_spill_events") is not None else ""))
+        for i, d in enumerate(plan.drivers):
+            d.collect_operator_metrics()
+            lines.append(f"Pipeline {i}:")
+            lines.extend("  " + st.line() for st in d.stats)
+        return QueryResult(["Query Plan"], [T.VARCHAR],
+                           [(line,) for line in lines])
+
+    def _connector(self, catalog: Optional[str]) -> Connector:
+        conn = self.metadata.connectors.get(catalog or "")
+        if conn is None:
+            raise AnalysisError(f"catalog '{catalog}' does not exist")
+        return conn
+
+    def _create_table(self, stmt: ast.CreateTable) -> QueryResult:
+        from .connectors.spi import ColumnHandle
+
+        _, conn, schema, table = self.metadata.resolve_target(
+            stmt.name, self.session)
+        if stmt.if_not_exists and \
+                conn.metadata().get_table_handle(schema, table) is not None:
+            return QueryResult(["result"], [T.BOOLEAN], [(True,)])
+        columns = [ColumnHandle(n.lower(), T.parse_type(t), i)
+                   for i, (n, t) in enumerate(stmt.columns)]
+        conn.metadata().create_table(schema, table, columns)
+        return QueryResult(["result"], [T.BOOLEAN], [(True,)])
+
+    def _drop_table(self, stmt: ast.DropTable) -> QueryResult:
+        _, conn, schema, table = self.metadata.resolve_target(
+            stmt.name, self.session)
+        handle = conn.metadata().get_table_handle(schema, table)
+        if handle is None:
+            if stmt.if_exists:
+                return QueryResult(["result"], [T.BOOLEAN], [(True,)])
+            raise AnalysisError(
+                f"table '{schema}.{table}' does not exist")
+        conn.metadata().drop_table(handle)
+        return QueryResult(["result"], [T.BOOLEAN], [(True,)])
+
+    def _delete(self, stmt: ast.Delete) -> QueryResult:
+        """DELETE as a real plan: the keep-query (NOT pred, null-safe) is
+        built as AST — no SQL-text round trip, so identifier quoting and
+        expression formatting cannot skew semantics. The kept pages go
+        back through the table's canonical dictionaries and replace its
+        storage, memory-connector style."""
+        from .connectors.memory import MemoryConnector
+
+        catalog, conn, schema, table = self.metadata.resolve_target(
+            stmt.table, self.session)
+        if not isinstance(conn, MemoryConnector):
+            raise AnalysisError(
+                "DELETE is only supported on the memory connector")
+        if conn.metadata().get_table_handle(schema, table) is None:
+            raise AnalysisError(
+                f"table '{schema}.{table}' does not exist")
+        data = conn.tables[(schema, table)]
+        before = data.row_count
+        if stmt.where is None:
+            with data.lock:
+                data.pages = []
+            conn.bump_version()
+            return QueryResult(["rows"], [T.BIGINT], [(before,)])
+        keep = ast.NotExpression(ast.FunctionCall(
+            "coalesce", (stmt.where, ast.BooleanLiteral(False))))
+        query = ast.Query(body=ast.QuerySpecification(
+            select_items=(ast.AllColumns(),),
+            from_=ast.Table((catalog, schema, table)),
+            where=keep))
+        root = self.plan_statement(ast.QueryStatement(query))
+        local = self._make_local_planner()
+        try:
+            res_pages = [data.canonicalize(p)
+                         for p in local.plan(root).execute()]
+        finally:
+            local.memory_pool.close()
+        with data.lock:
+            data.pages = res_pages
+        conn.bump_version()
+        return QueryResult(["rows"], [T.BIGINT],
+                           [(before - sum(p.num_rows
+                                          for p in res_pages),)])
 
     def _splits(self) -> int:
         from . import session_properties as SP
@@ -130,7 +297,11 @@ class LocalQueryRunner:
             hash_grouping=SP.value(self.session, "hash_grouping_enabled"),
             scan_coalesce=SP.value(self.session, "scan_coalesce_enabled"),
             matmul_max_key_range=SP.value(self.session,
-                                          "matmul_join_max_key_range"))
+                                          "matmul_join_max_key_range"),
+            hybrid_join=SP.value(self.session, "hybrid_join_enabled"),
+            hybrid_join_fanout=SP.value(self.session, "hybrid_join_fanout"),
+            hybrid_join_max_depth=SP.value(self.session,
+                                           "hybrid_join_max_depth"))
 
 
 def _operator_metrics(drivers) -> List[dict]:
