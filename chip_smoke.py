@@ -100,15 +100,43 @@ Phases, one JSON line each on standard output:
     spill_q18_columns — (a)'s calls replayed like q3's, exact: its merges
              take partials reloaded from disk, compacted, in budget
              chunks;
-15. the ``kernels`` line: per kernel its route, source, the TPU kernel it
+15. serving_sf1 — the statement server (``ProtocolServer`` on 127.0.0.1,
+             port 0) over the memory runner, driven through the engine's
+             ``Client``: q1, q3, q6 and q18 once each against the oracle
+             (wall from submit to last page, kernel calls); q1 again (a
+             plan cache hit) and with the result cache on (a hit with no
+             kernel launch); a burst of eight q6-shape statements
+             (discount centre and quantity cut vary, the first is q6),
+             one of eight q1-shape statements (q1 without its ORDER BY,
+             a quantity cut varies, the first is q1's rows) and one of
+             eight q6-shape statements summing a DOUBLE, each submitted
+             at once from eight threads while the server's executor is
+             held: one admission batch of 8, a plan template, the
+             ``agg_stage_vmapped`` disposition, every member equal to
+             the engine's serial run of its text (DOUBLEs bit for bit)
+             and the first of q6 and q1 to the oracle, and no more kernel
+             calls than one serial run (one folded call per page over
+             8 x (cap + 1) segments, and the merge), each recorded; a
+             denied user (PERMISSION_DENIED) and a burst member whose
+             literal has another type (ANALYSIS_ERROR, its siblings
+             equal to their serial runs);
+             GET /v1/query/{id}, GET /v1/metrics and
+             ``system.runtime.queries`` listing the statements above;
+    serving_q6_columns, serving_q1_columns, serving_q6d_columns — the
+             bursts' recorded folded calls replayed like q3's (ints,
+             MIN and MAX exactly, float sums within SUM_RTOL), the
+             largest page call and the merge timed;
+16. the wall of the whole script;
+17. the ``kernels`` line: per kernel its route, source, the TPU kernel it
    replaces, launches on the main path (the sum over every query run
    above, with the count of each beside it), its error against the plain
    version, its time, the plain version's, the library call's and its
    memory/compute bound at the main path's shape (q1's page call), and
    the same at the page and merge calls of every replay above
    (``q3_shapes``, ``q18_shapes``, ``memory_q3_shapes``,
-   ``memory_q18_shapes``, ``spill_q18_shapes``);
-16. the last line: ``{"ok": true, "device": {...}}``.
+   ``memory_q18_shapes``, ``spill_q18_shapes``) and of the serving
+   bursts' folded calls (``serving_shapes``);
+18. the last line: ``{"ok": true, "device": {...}}``.
 
 Any failed check raises; nothing is caught, so a failed phase ends the
 run with a non-zero exit code before the last line is printed.
@@ -122,6 +150,8 @@ import sys
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
+#: the script's start, for the wall of the whole run
+T0 = time.perf_counter()
 
 #: H100 SXM HBM3 bandwidth (NVIDIA data sheet) for the memory bound
 HBM_BYTES_PER_S = 3.35e12
@@ -1236,6 +1266,366 @@ def spill_phase(card, runner, peaks):
     return launches, calls
 
 
+#: q6's shape with its discount centre and quantity cut as the literals
+#: that vary; the first member is q6 itself
+SERVING_Q6_SQL = """select sum(l_extendedprice * l_discount) as revenue
+from lineitem
+where l_shipdate >= date '1994-01-01'
+  and l_shipdate < date '1994-01-01' + interval '1' year
+  and l_discount between %s - 0.01 and %s + 0.01
+  and l_quantity < %s"""
+SERVING_Q6_ARGS = [("0.06", 24), ("0.05", 24), ("0.04", 30), ("0.07", 20),
+                   ("0.03", 25), ("0.08", 24), ("0.02", 40), ("0.06", 10)]
+#: q6's shape summing a DOUBLE, with SERVING_Q6_ARGS: float-sum partials
+#: stay at full capacity and each lane starts on a kernel tile edge, so
+#: every member's sum must equal its serial run's bit for bit. One float
+#: sum keeps the burst's full-capacity partials and merge inside the
+#: default 8 GiB query budget; a second would exceed it (memory_budget)
+SERVING_Q6D_SQL = """select
+  sum(l_extendedprice * l_discount * 1.0e0) as revenue
+from lineitem
+where l_shipdate >= date '1994-01-01'
+  and l_shipdate < date '1994-01-01' + interval '1' year
+  and l_discount between %s - 0.01 and %s + 0.01
+  and l_quantity < %s"""
+#: q1 without its ORDER BY (a sort is not a batched stage) and with a
+#: quantity cut as the literal that varies; its interval literal stays
+#: in the statement's shape, so a delta that varies would make eight
+#: shapes. The first member (every quantity is below 51) is q1's rows.
+SERVING_Q1_SQL = """select
+    l_returnflag, l_linestatus,
+    sum(l_quantity) as sum_qty,
+    sum(l_extendedprice) as sum_base_price,
+    sum(l_extendedprice * (1 - l_discount)) as sum_disc_price,
+    sum(l_extendedprice * (1 - l_discount) * (1 + l_tax)) as sum_charge,
+    avg(l_quantity) as avg_qty,
+    avg(l_extendedprice) as avg_price,
+    avg(l_discount) as avg_disc,
+    count(*) as count_order
+from lineitem
+where l_shipdate <= date '1998-12-01' - interval '90' day
+  and l_quantity < %d
+group by l_returnflag, l_linestatus"""
+SERVING_Q1_ARGS = [51, 45, 40, 35, 30, 25, 20, 15]
+
+
+def _http_result(res):
+    """A client result as the runner's result shape (types, rows with
+    decimals as Decimal), for ``_assert_same``."""
+    from decimal import Decimal
+
+    from trino_tpu_torch import types as T
+    from trino_tpu_torch.runner import QueryResult
+
+    types_ = [T.parse_type(c["type"]) for c in res.columns]
+    rows = [tuple(Decimal(v) if t.is_decimal and v is not None else v
+                  for v, t in zip(row, types_)) for row in res.rows]
+    return QueryResult(res.column_names, types_, rows)
+
+
+def _burst(srv, sqls, user=None):
+    """Submit ``sqls`` at once from one thread each while the server's
+    executor threads are held, then release them: the statements wait in
+    the backlog together, as a burst arriving at a busy server does.
+    Returns the client results (or exceptions) in order and the wall
+    from the release to the last client's last page."""
+    import threading
+
+    from trino_tpu_torch.client import Client
+
+    gate = threading.Event()
+    holds = [srv.executor.submit(gate.wait)
+             for _ in range(srv.executor._max_workers)]
+    out = [None] * len(sqls)
+
+    def go(i):
+        try:
+            out[i] = Client(srv.uri, user=user).execute(sqls[i])
+        except Exception as e:  # reported per statement
+            out[i] = e
+
+    threads = [threading.Thread(target=go, args=(i,))
+               for i in range(len(sqls))]
+    for t in threads:
+        t.start()
+    deadline = time.time() + 60
+    while len(srv._backlog) < len(sqls):
+        if time.time() > deadline:
+            raise AssertionError("the burst never reached the backlog")
+        time.sleep(0.005)
+    t0 = time.perf_counter()
+    gate.set()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    for h in holds:
+        h.result()
+    return out, wall
+
+
+def _admission_batches(srv) -> dict:
+    from trino_tpu_torch.telemetry.metrics import parse_prometheus
+
+    return parse_prometheus(srv.metrics_text()).get(
+        "trino_http_admission_batches_total", {})
+
+
+def _serving_burst(card, srv, runner, name, sqls, oracle_qid, calls):
+    """One burst of eight same-shape statements over HTTP: one admission
+    batch of 8 on a plan template, the aggregation through the folded
+    kernel calls (recorded in ``calls``), every member equal to the
+    engine's serial run of its text and, with ``oracle_qid``, the first
+    member to that query's oracle rows; at most as many kernel calls as
+    one serial run."""
+    import torch
+
+    from trino_tpu_torch.exec import batched
+    from trino_tpu_torch.ops import kernels
+
+    before = _admission_batches(srv)
+    disp0 = dict(runner.query_cache.templates.dispositions)
+    launched0 = runner.query_cache.batched_launches
+    batched.segment_reduce_columns = _recording(calls)
+    torch.cuda.synchronize()
+    kernels.segment_reduce.launches = 0
+    try:
+        out, wall = _burst(srv, sqls)
+    finally:
+        batched.segment_reduce_columns = kernels.segment_reduce_columns
+    torch.cuda.synchronize()
+    burst_launches = kernels.segment_reduce.launches
+    bad = [o for o in out if isinstance(o, Exception)]
+    if bad:
+        raise AssertionError(f"{name} burst: {bad[0]!r}")
+    after = _admission_batches(srv)
+    grew = {k: after[k] - before.get(k, 0) for k in after
+            if after[k] != before.get(k, 0)}
+    if grew != {'{size="8"}': 1.0}:
+        raise AssertionError(f"{name} burst: admission batches {grew}, "
+                             "want one batch of 8")
+    disp = {k: v - disp0.get(k, 0) for k, v in
+            runner.query_cache.templates.dispositions.items()}
+    if disp.get("agg_stage_vmapped") != 1 or \
+            runner.query_cache.batched_launches - launched0 != 8:
+        raise AssertionError(f"{name} burst: dispositions {disp}, "
+                             "want one agg_stage_vmapped batch of 8")
+    # the serial oracle: each text alone, batching off (still through the
+    # template), launches of the first member counted
+    runner.session.properties["batched_execution_enabled"] = False
+    serial_walls, serial_launches = [], None
+    try:
+        for i, sql in enumerate(sqls):
+            kernels.segment_reduce.launches = 0
+            t0 = time.perf_counter()
+            want = runner.execute(sql)
+            torch.cuda.synchronize()
+            serial_walls.append(round(time.perf_counter() - t0, 4))
+            if serial_launches is None:
+                serial_launches = kernels.segment_reduce.launches
+            if want.stats.get("plan_template") != "hit":
+                raise AssertionError(f"{name} serial {i}: not templated")
+            got = _http_result(out[i]).rows
+            if sorted(got) != sorted(want.rows):
+                raise AssertionError(f"{name} member {i}: batched rows "
+                                     "differ from the serial run")
+    finally:
+        runner.session.properties.pop("batched_execution_enabled")
+    if oracle_qid is not None:
+        first = _http_result(out[0])
+        first.rows.sort(key=lambda r: tuple(str(v) for v in r))
+        _assert_same(first, _load_expected(oracle_qid), f"{name} member 0")
+    if burst_launches != len(calls) or burst_launches > serial_launches:
+        raise AssertionError(
+            f"{name} burst: {burst_launches} kernel calls ({len(calls)} "
+            f"recorded), one serial run makes {serial_launches}")
+    emit({"phase": "serving_sf1", "step": f"{name}_burst",
+          "members": len(sqls), "admission_batches": grew,
+          "dispositions": disp, "burst_wall_s": round(wall, 4),
+          "serial_walls_s": serial_walls,
+          "serial_wall_sum_s": round(sum(serial_walls), 4),
+          "launches": {"segment_reduce": burst_launches},
+          "serial_launches": {"segment_reduce": serial_launches},
+          "segments_per_call": sorted({c[2] for c in calls}),
+          "rows_per_call": sorted({c[1].shape[0] for c in calls}),
+          "matches_serial": True,
+          "member0_matches_oracle": oracle_qid is not None,
+          "card": card["nvidia_smi"]})
+    return burst_launches
+
+
+def serving_phase(card, runner):
+    """The statement server over the memory runner: ProtocolServer on
+    127.0.0.1 (port 0) driven through the engine's Client. Single q1,
+    q3, q6 and q18 against the oracle; q1 again from the plan cache and
+    from the result cache (no kernel launch); a q6-shape and a q1-shape
+    burst of eight; a denied user and a failing member of a burst;
+    /v1/query/{id}, /v1/metrics and system.runtime.queries. Returns the
+    launches per step and the recorded folded calls per burst."""
+    import json
+    import urllib.request
+
+    import torch
+
+    from trino_tpu_torch.client import Client
+    from trino_tpu_torch.ops import kernels
+    from trino_tpu_torch.resources.tpch_queries import TPCH_QUERIES
+    from trino_tpu_torch.security import (ALLOW_ALL,
+                                          RuleBasedAccessControl,
+                                          TableRule)
+    from trino_tpu_torch.server.protocol import ProtocolServer
+    from trino_tpu_torch.types import TrinoError
+
+    served = {}
+    execute_batch = runner.execute_batch
+
+    def observed(sqls, user=None):
+        out = execute_batch(sqls, user=user)
+        for sql, res in zip(sqls, out):
+            if not isinstance(res, Exception):
+                served[sql] = res.stats or {}
+        return out
+
+    # the server's path (it drains statements through execute_batch):
+    # keeps each result's stats (plan/result cache hits); observation only
+    runner.execute_batch = observed
+    srv = ProtocolServer(runner, host="127.0.0.1", port=0).start()
+    client = Client(srv.uri)
+    launches, calls = {}, {"q6": [], "q1": [], "q6d": []}
+    qids = {}
+    try:
+        for qid in MEMORY_QUERIES:
+            sql = TPCH_QUERIES[qid]
+            torch.cuda.synchronize()
+            kernels.segment_reduce.launches = 0
+            t0 = time.perf_counter()
+            res = client.execute(sql)
+            wall = time.perf_counter() - t0
+            launches[f"http_q{qid}"] = kernels.segment_reduce.launches
+            _assert_same(_http_result(res), _load_expected(qid),
+                         f"http q{qid}")
+            emit({"phase": "serving_sf1", "step": "single",
+                  "query": f"q{qid}", "wall_s": round(wall, 4),
+                  "rows_out": len(res.rows), "matches_oracle": True,
+                  "launches": {"segment_reduce":
+                               launches[f"http_q{qid}"]},
+                  "card": card["nvidia_smi"]})
+        q1 = TPCH_QUERIES[1]
+        rows1 = client.execute(q1).rows
+        if served[q1].get("plan_cache") != "hit":
+            raise AssertionError(f"q1 repeat: {served[q1]}, want a plan "
+                                 "cache hit")
+        client.execute("set session result_cache_enabled = true")
+        client.execute(q1)                    # new keyspace: stores
+        torch.cuda.synchronize()
+        kernels.segment_reduce.launches = 0
+        t0 = time.perf_counter()
+        again = client.execute(q1)
+        wall = time.perf_counter() - t0
+        hit_launches = kernels.segment_reduce.launches
+        client.execute("set session result_cache_enabled = false")
+        if served[q1].get("result_cache") != "hit" or hit_launches or \
+                again.rows != rows1:
+            raise AssertionError(f"q1 result cache: {served[q1]}, "
+                                 f"{hit_launches} launches")
+        emit({"phase": "serving_sf1", "step": "repeat",
+              "plan_cache": "hit", "result_cache": "hit",
+              "result_cache_wall_s": round(wall, 4),
+              "result_cache_launches": hit_launches,
+              "card": card["nvidia_smi"]})
+        launches["q6_burst"] = _serving_burst(
+            card, srv, runner, "q6",
+            [SERVING_Q6_SQL % (c, c, q) for c, q in SERVING_Q6_ARGS], 6,
+            calls["q6"])
+        launches["q1_burst"] = _serving_burst(
+            card, srv, runner, "q1",
+            [SERVING_Q1_SQL % k for k in SERVING_Q1_ARGS], 1, calls["q1"])
+        launches["q6d_burst"] = _serving_burst(
+            card, srv, runner, "q6d",
+            [SERVING_Q6D_SQL % (c, c, q) for c, q in SERVING_Q6_ARGS], None,
+            calls["q6d"])
+        # errors: a denied user, and a member of a burst whose literal
+        # has another type (it leaves the batch and fails alone)
+        runner.access_control = RuleBasedAccessControl([
+            TableRule(user="mallory", privileges=[]),
+            TableRule(privileges=["SELECT", "INSERT", "DELETE",
+                                  "OWNERSHIP"])])
+        try:
+            Client(srv.uri, user="mallory").execute(TPCH_QUERIES[6])
+            denied = None
+        except TrinoError as e:
+            denied = e.code
+        finally:
+            runner.access_control = ALLOW_ALL
+        args = [("0.06", "24"), ("0.05", "24"), ("0.06", "'abc'"),
+                ("0.04", "30")]
+        sqls = [SERVING_Q6_SQL % (c, c, q) for c, q in args]
+        out, _ = _burst(srv, sqls)
+        codes = [getattr(o, "code", None) for o in out]
+        runner.session.properties["batched_execution_enabled"] = False
+        try:
+            for i in (0, 1, 3):
+                if _http_result(out[i]).rows != runner.execute(
+                        sqls[i]).rows:
+                    raise AssertionError(f"error burst member {i} differs "
+                                         "from its serial run")
+        finally:
+            runner.session.properties.pop("batched_execution_enabled")
+        if denied != "PERMISSION_DENIED" or \
+                codes != [None, None, "ANALYSIS_ERROR", None]:
+            raise AssertionError(f"errors: denied {denied}, burst {codes}")
+        emit({"phase": "serving_sf1", "step": "errors",
+              "denied_user": denied, "burst_codes": codes,
+              "others_match_serial": True, "card": card["nvidia_smi"]})
+        # endpoints: the stats tree of a finished statement, the metrics
+        # text, and the statements above in system.runtime.queries
+        doc = json.loads(urllib.request.urlopen(urllib.request.Request(
+            srv.uri + "/v1/statement", data=TPCH_QUERIES[6].encode(),
+            method="POST")).read())
+        nxt = doc["nextUri"]
+        while nxt:
+            nxt = json.loads(urllib.request.urlopen(nxt).read()) \
+                .get("nextUri")
+        info = json.loads(urllib.request.urlopen(
+            f"{srv.uri}/v1/query/{doc['id']}").read())
+        text = urllib.request.urlopen(srv.uri + "/v1/metrics").read() \
+            .decode()
+        families = [f for f in ("trino_http_statements_total",
+                                "trino_http_admission_batches_total",
+                                "trino_plan_cache_total",
+                                "trino_result_cache_total",
+                                "trino_plan_template_total",
+                                "trino_admission_batches_total",
+                                "trino_queries_total")
+                    if f"# TYPE {f} " in text]
+        listed = client.execute(
+            "select query, state from system.runtime.queries").rows
+        states = {}
+        for query, state in listed:
+            states.setdefault(query, set()).add(state)
+        want = [TPCH_QUERIES[q] for q in MEMORY_QUERIES] + \
+            [SERVING_Q6_SQL % (c, c, q) for c, q in SERVING_Q6_ARGS] + \
+            [SERVING_Q1_SQL % k for k in SERVING_Q1_ARGS] + \
+            [SERVING_Q6D_SQL % (c, c, q) for c, q in SERVING_Q6_ARGS]
+        missing = [q for q in want if "FINISHED" not in states.get(q, ())]
+        if info["state"] != "FINISHED" or info["rows"] != 1 or \
+                len(families) != 7 or missing or \
+                "FAILED" not in states.get(sqls[2], ()):
+            raise AssertionError(
+                f"endpoints: query {info['state']}/{info['rows']}, "
+                f"families {families}, {len(missing)} statements missing "
+                "from system.runtime.queries")
+        emit({"phase": "serving_sf1", "step": "endpoints",
+              "query_info": {k: info[k] for k in ("state", "rows")},
+              "query_info_wall_ms": info["stats"]["wall_ms"],
+              "metrics_families": families,
+              "runtime_queries_rows": len(listed),
+              "card": card["nvidia_smi"]})
+    finally:
+        srv.stop()
+        del runner.execute_batch
+    return launches, calls
+
+
 def _bound_ms(cols, n: int, num_segments: int, with_order: bool):
     """(bound ms, bound_by, bytes) of one ``segment_reduce_columns`` call:
     gid (and order) read once per row, each column read once per row and
@@ -1248,13 +1638,16 @@ def _bound_ms(cols, n: int, num_segments: int, with_order: bool):
         "bytes" if bytes_ms >= ops_ms else "operations", bytes_
 
 
-def columns_replay_phase(phase: str, calls, page_by: str):
+def columns_replay_phase(phase: str, calls, page_by: str,
+                         depth: int = 0):
     """Every ``segment_reduce_columns`` call of a query's cold run, on the
     inputs the run gave it, against its plain version (ints exactly);
     then one page call (the one with the most lanes, or with the most
     live rows: ``page_by`` "n" or "live") and the merge (the call with
     the most groups) timed beside the plain version and ``index_add_``
-    over the unsorted gids."""
+    over the unsorted gids. With ``depth``, the calls are a burst's
+    folded calls over ``depth`` lanes (each lane's last segment is its
+    dump segment), and the merge is the last call."""
     import torch
 
     from trino_tpu_torch.ops import kernels
@@ -1263,10 +1656,15 @@ def columns_replay_phase(phase: str, calls, page_by: str):
             for cols, gid, ns, kinds, order in calls]
     shapes = []
     for cols, gid, ns, kinds, order in calls:
-        live = gid < gid.shape[0]
+        if depth:
+            live = gid % (ns // depth) != ns // depth - 1
+            g = gid[live]
+            groups = int((g[1:] != g[:-1]).sum()) + 1 if g.numel() else 0
+        else:
+            live = gid < gid.shape[0]
+            groups = int(gid[live].max()) + 1 if bool(live.any()) else 0
         shapes.append({"n": gid.shape[0], "live": int(live.sum()),
-                       "groups": int(gid[live].max()) + 1
-                       if bool(live.any()) else 0})
+                       "groups": groups, "segments": ns})
     emit({"phase": phase, "calls": len(calls),
           "columns": sorted({len(c[0]) for c in calls}),
           "dtypes": sorted({str(col.dtype).removeprefix("torch.")
@@ -1274,7 +1672,8 @@ def columns_replay_phase(phase: str, calls, page_by: str):
           "kinds": sorted({k for c in calls for k in c[3]}),
           "order": all(c[4] is not None for c in calls),
           "shapes": shapes, "max_abs_err": max(errs)})
-    merge = max(range(len(calls)), key=lambda i: shapes[i]["groups"])
+    merge = len(calls) - 1 if depth else \
+        max(range(len(calls)), key=lambda i: shapes[i]["groups"])
     largest = max((i for i in range(len(calls)) if i != merge),
                   key=lambda i: shapes[i][page_by])
     timed = {}
@@ -1354,9 +1753,18 @@ def main() -> int:
     launches.update(spill_launches)
     replayed["spill_q18"] = columns_replay_phase("spill_q18_columns",
                                                  spill_calls, "live")
-    del runner, spill_calls
+    del spill_calls
+    serving_launches, serving_calls = serving_phase(card, runner)
+    launches.update({f"serving_{k}": n for k, n in serving_launches.items()})
+    del runner
+    serving_shapes = {
+        f"{name}_burst": columns_replay_phase(
+            f"serving_{name}_columns", serving_calls.pop(name), "live",
+            depth=8)
+        for name in ("q6", "q1", "q6d")}
     bytes_ms = main_shape["bytes"] / HBM_BYTES_PER_S * 1e3
     ops_ms = main_shape["n"] * STATES_PER_PAGE / VECTOR_OPS_PER_S * 1e3
+    emit({"phase": "wall", "script_s": round(time.perf_counter() - T0, 1)})
     emit({"kernels": [{
         "name": "segment_reduce",
         "route": "cuda",
@@ -1375,6 +1783,11 @@ def main() -> int:
             "plain_ms", "device_ms", "bound_ms", "bound_by", "library_ms")}
             for case, t in shapes.items()}
            for q, shapes in replayed.items()},
+        "serving_shapes": {burst: {case: {k: t[k] for k in (
+            "n", "groups", "segments", "columns", "max_abs_err",
+            "kernel_ms", "plain_ms", "device_ms", "bound_ms", "bound_by",
+            "library_ms")} for case, t in shapes.items()}
+            for burst, shapes in serving_shapes.items()},
     }]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": card["kind"],
                                  "count": card["count"]}})

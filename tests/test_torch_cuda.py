@@ -390,3 +390,102 @@ def test_spilled_aggregation_on_the_card_equals_unspilled(dev, to_disk):
         assert got.rows == want.rows
         assert mem["spill_events"] > 0 and mem["peak_bytes"] <= 4_000_000
         assert (mem.get("disk_spill_events", 0) > 0) == to_disk
+
+
+def _folded_inputs(rng, depth, cap, dtype, dev, dead=()):
+    """A burst's folded call: ``depth`` lanes of ``cap`` rows, each with
+    its own sorted dense gids (a few groups, then the dump segment
+    ``cap``), laid end to end at the kernel's lane stride, each lane's
+    rows read through its own permutation; the lanes in ``dead`` hold
+    only dump rows (an all-masked lane). Returns (col, gid', order,
+    segments, stride)."""
+    from trino_tpu_torch.exec.batched import _lane_stride
+
+    stride = _lane_stride(cap, dev)
+    seg = cap + 1
+    gids, cols, orders = [], [], []
+    for d in range(depth):
+        g = np.full(stride, cap, dtype=np.int64)
+        if d not in dead:
+            live = int(rng.integers(1, cap + 1))
+            raw = np.sort(rng.integers(0, max(1, live // 3), live))
+            g[:live] = np.unique(raw, return_inverse=True)[1]
+        gids.append(d * seg + g)
+        orders.append(d * stride + rng.permutation(stride))
+        if dtype.is_floating_point:
+            cols.append(np.floor(rng.uniform(-1000, 1000, stride) * 1024)
+                        / 1024)
+        else:
+            cols.append(rng.integers(-2 ** 62, 2 ** 62, stride,
+                                     dtype=np.int64))
+    return (torch.from_numpy(np.concatenate(cols)).to(dtype).to(dev),
+            torch.from_numpy(np.concatenate(gids)).to(torch.int32).to(dev),
+            torch.from_numpy(np.concatenate(orders)).to(dev),
+            depth * seg, stride)
+
+
+@pytest.mark.parametrize("depth", [1, 3, 8, 16])
+def test_folded_lanes_match_plain_version(dev, depth):
+    """One folded ``segment_reduce_columns`` call over a burst's lanes —
+    gid' = lane * (cap + 1) + gid, read through each lane's order —
+    against the plain version, for SUM/MIN/MAX over int64 and float64,
+    with all-masked lanes (identity in every segment); and each lane's
+    result, float sums included, bit-identical to the same lane reduced
+    alone (every lane starts on a tile edge)."""
+    rng = np.random.default_rng(depth)
+    cap = 4096
+    seg = cap + 1
+    dead = {0, depth - 1} if depth > 2 else set()
+    for dtype in (torch.int64, torch.float64):
+        col, gid, order, ns, stride = _folded_inputs(rng, depth, cap, dtype,
+                                                     dev, dead)
+        before = kernels.segment_reduce.launches
+        got = kernels.segment_reduce_columns([col] * 3, gid, ns, KINDS,
+                                             order=order)
+        assert kernels.segment_reduce.launches == before + 1
+        for out, kind in zip(got, KINDS):
+            _assert_matches(out, col[order], gid, ns, kind)
+        for d in range(depth):
+            rows = slice(d * stride, (d + 1) * stride)
+            alone = kernels.segment_reduce_columns(
+                [col[rows]] * 3, (gid[rows] - d * seg).contiguous(), seg,
+                KINDS, order=(order[rows] - d * stride).contiguous())
+            for a, g, kind in zip(alone, got, KINDS):
+                lane = g[d * seg:(d + 1) * seg]
+                assert torch.equal(a, lane)
+                if d in dead:   # every segment but the dump's
+                    assert bool((lane[:cap] == kernels.segment_identity(
+                        kind, dtype)).all())
+
+
+def test_burst_on_the_card_equals_its_serial_runs(dev):
+    """Eight same-shape aggregations over a memory table of several pages
+    on the card as one burst: every member equals its serial run on the
+    card exactly (DOUBLE sums and averages too: each lane starts on a
+    kernel tile edge, so its float sums associate as in its serial run),
+    and the burst makes the serial run's kernel calls, not eight times as
+    many."""
+    from trino_tpu_torch.connectors.memory import MemoryConnector
+
+    runner = LocalQueryRunner(
+        {"tpch": TpchConnector(page_rows=4096), "memory": MemoryConnector()},
+        Session(catalog="memory", schema="default"), device=dev)
+    runner.execute("create table lineitem as select l_returnflag, "
+                   "l_linestatus, l_quantity, l_extendedprice, l_discount "
+                   "from tpch.tiny.lineitem")
+    burst = ["select l_returnflag, l_linestatus, sum(l_quantity), "
+             "avg(l_extendedprice), min(l_discount), count(*), "
+             "sum(l_extendedprice * 1.0e0), avg(l_discount * 1.0e0) "
+             "from lineitem "
+             "where l_quantity < %d group by l_returnflag, l_linestatus"
+             % k for k in (51, 45, 40, 35, 30, 25, 20, 15)]
+    before = kernels.segment_reduce.launches
+    out = runner.execute_batch(burst)
+    burst_calls = kernels.segment_reduce.launches - before
+    assert runner.query_cache.batched_launches == 8
+    runner.session.properties["batched_execution_enabled"] = False
+    before = kernels.segment_reduce.launches
+    serial = [runner.execute(s).rows for s in burst]
+    serial_calls = (kernels.segment_reduce.launches - before) // 8
+    assert [o.rows for o in out] == serial
+    assert 0 < burst_calls <= serial_calls

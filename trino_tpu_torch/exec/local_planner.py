@@ -66,20 +66,32 @@ class PhysicalPipeline:
 class LocalExecutionPlan:
     def __init__(self, pipelines: List[PhysicalPipeline],
                  sink: OutputCollectorOperator,
-                 column_names: List[str], output_types: List[T.Type]):
+                 column_names: List[str], output_types: List[T.Type],
+                 progress=None):
         self.pipelines = pipelines
         self.sink = sink
         self.column_names = column_names
         self.output_types = output_types
+        #: telemetry.progress.QueryProgress fed live task counts
+        self.progress = progress
 
     def execute(self, collect_stats: bool = False) -> List[Page]:
         from .driver import Driver
 
         self.drivers = []
+        p_ = self.progress
+        if p_ is not None:
+            p_.tasks_total = len(self.pipelines)
         for p in self.pipelines:
             d = Driver(p.operators, collect_stats=collect_stats)
             self.drivers.append(d)
-            d.run_to_completion()
+            if p_ is not None:
+                p_.task_started()
+            try:
+                d.run_to_completion()
+            finally:
+                if p_ is not None:
+                    p_.task_finished()
         return self.sink.pages
 
 
@@ -94,7 +106,8 @@ class LocalExecutionPlanner:
                  matmul_max_key_range: int = 1024,
                  hybrid_join: bool = True,
                  hybrid_join_fanout: int = 0,
-                 hybrid_join_max_depth: int = 3):
+                 hybrid_join_max_depth: int = 3,
+                 processor_cache=None, progress=None, params=None):
         self.metadata = metadata
         self.device = device
         self.desired_splits = desired_splits
@@ -116,15 +129,47 @@ class LocalExecutionPlanner:
         self.hybrid_join = hybrid_join
         self.hybrid_join_fanout = hybrid_join_fanout
         self.hybrid_join_max_depth = hybrid_join_max_depth
+        #: shared PageProcessor cache (cache.ProcessorCache): repeat
+        #: plans reuse already-planned processors and their uploaded
+        #: LUTs; None = build fresh per plan
+        self.processor_cache = processor_cache
+        #: live progress tracker (telemetry.progress.QueryProgress):
+        #: table scans feed rows_scanned, the plan feeds task counts
+        self.progress = progress
+        #: template-parameter bindings: GLOBAL literal-slot index -> raw
+        #: scalar. A template plan's IR carries opaque ParamRefs; this
+        #: map binds them for ONE statement. None/{} for ordinary
+        #: (literal-baked) plans.
+        self._params = dict(params or {})
         self.pipelines: List[PhysicalPipeline] = []
         # scan-node id -> [(channel, DynamicFilter)] attachments
         self._scan_dfs: Dict[int, List] = {}
         self.dynamic_filters: List = []  # all filters, for query stats
 
+    def _processor(self, input_types, projections,
+                   filter_expr=None) -> PageProcessor:
+        """Every PageProcessor this planner builds comes through here so
+        the shared-processor cache can intercept: the IR is frozen
+        dataclasses, so (types, projections, filter) IS the program."""
+        if self.processor_cache is not None:
+            return self.processor_cache.get(input_types, projections,
+                                            filter_expr)
+        return PageProcessor(list(input_types), list(projections),
+                             filter_expr)
+
+    def _params_for(self, proc: PageProcessor) -> tuple:
+        """This statement's raw bindings for the slots ``proc``
+        consumes, in ``proc.param_indices`` order (a missing binding is
+        a planner bug: the template/member contract guarantees the full
+        literal vector)."""
+        if not proc.param_indices:
+            return ()
+        return tuple(self._params[i] for i in proc.param_indices)
+
     def _fp_operator(self, input_types, projections,
                      filter_expr=None) -> FilterProjectOperator:
-        return FilterProjectOperator(PageProcessor(
-            list(input_types), list(projections), filter_expr))
+        proc = self._processor(input_types, projections, filter_expr)
+        return FilterProjectOperator(proc, self._params_for(proc))
 
     def _mem_ctx(self, name: str):
         if self.memory_pool is None:
@@ -162,7 +207,8 @@ class LocalExecutionPlanner:
         ops.append(sink)
         self.pipelines.append(PhysicalPipeline(ops))
         return LocalExecutionPlan(self.pipelines, sink, root.column_names,
-                                  [s.type for s in root.outputs])
+                                  [s.type for s in root.outputs],
+                                  progress=self.progress)
 
     # ------------------------------------------------------------------
 
@@ -183,7 +229,8 @@ class LocalExecutionPlanner:
                                      id(node), []),
                                  coalesce_rows=getattr(
                                      conn, "page_rows", None)
-                                 if self.scan_coalesce else None)
+                                 if self.scan_coalesce else None,
+                                 progress=self.progress)
         for split in conn.split_manager().get_splits(node.table,
                                                      self.desired_splits):
             scan.add_split(split)
@@ -299,11 +346,14 @@ class LocalExecutionPlanner:
             for name, ch in blayout.items():
                 combined_layout[name] = len(ptypes) + ch
             combined_types = ptypes + btypes
-            proc = PageProcessor(
+            proc = self._processor(
                 combined_types,
                 [InputRef(t, i) for i, t in enumerate(combined_types)],
                 to_input_refs(filter_expr, combined_layout))
-            filter_fn = proc.process
+            jparams = self._params_for(proc)
+
+            def filter_fn(dp, _proc=proc, _params=jparams):
+                return _proc.process(dp, _params)
 
         if strategy == "matmul":
             # the cost model picked the blocked one-hot matmul probe;

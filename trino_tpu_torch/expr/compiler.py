@@ -20,12 +20,25 @@ evaluate all branches (vector select) — SQL-visible behavior matches lazy
 evaluation because kernels never trap (div-by-zero lanes are masked). A
 ``None`` null mask means "no NULLs".
 
-Template parameters (``ParamRef``) and the batched (vmapped) path are not
-ported yet.
+Template parameters: a ``ParamRef`` reads its value from the bound
+parameters instead of a baked constant, so one processor serves every
+literal vector of a statement shape. ``process(page, params)`` binds one
+statement's values as 0-d tensors (the same rawness a ``Literal``
+lowers to); ``process_batched`` runs a burst of B statements in one
+pass, with an explicit leading ``(B,)`` axis where the JAX engine
+vmaps: each parameter is a ``(B, 1)`` tensor broadcast against the page,
+and every output lane is ``(B, n)``. In ``"shared"`` mode the input page
+carries no batch axis (the scan page every member reads); in
+``"carried"`` mode it already has one.
+
+Processors are shared across concurrent queries (``cache.ProcessorCache``):
+the host-side LUT and dictionary caches take the processor's lock; the
+device work runs outside it.
 """
 
 from __future__ import annotations
 
+import threading
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -33,7 +46,7 @@ import torch
 
 from .. import types as T
 from ..block import DevicePage, Dictionary, padded_size, storage_dtype
-from ..types import TrinoError, TypeError_
+from ..types import TypeError_
 from . import functions as F
 from .ir import Call, InputRef, Literal, ParamRef, RowExpression
 
@@ -108,6 +121,9 @@ class PageProcessor:
         self.input_types = list(input_types)
         self.projections = list(projections)
         self.filter_expr = filter_expr
+        #: serializes the host-side LUT/dictionary caches of a processor
+        #: shared by concurrent queries (never the device work)
+        self._cache_lock = threading.Lock()
         self.slots: List[_Slot] = []
         #: (slot, pool uids, pool sizes, device) -> uploaded LUT tensor
         self._lut_cache: Dict = {}
@@ -118,6 +134,24 @@ class PageProcessor:
         self._out_dict_resolvers: Dict[int, object] = {}
         exprs = ([filter_expr] if filter_expr is not None else []) \
             + self.projections
+        # template parameter slots: param_indices is the sorted tuple of
+        # GLOBAL literal-slot indices this program consumes; callers pass
+        # bindings in that order
+        self._param_types: Dict[int, T.Type] = {}
+
+        def note_params(e):
+            if isinstance(e, ParamRef):
+                self._param_types[e.index] = e.type
+            elif isinstance(e, Call):
+                for a in e.args:
+                    note_params(a)
+
+        for e in exprs:
+            note_params(e)
+        self.param_indices: Tuple[int, ...] = tuple(
+            sorted(self._param_types))
+        self._param_pos = {idx: pos for pos, idx
+                           in enumerate(self.param_indices)}
         # plan every expression once (assigns slots deterministically)
         self._plans = [self._plan(e) for e in exprs]
         if filter_expr is not None:
@@ -274,8 +308,15 @@ class PageProcessor:
             return lambda env: (_scalar(env, raw), None)
 
         if isinstance(e, ParamRef):
-            raise TrinoError("template parameters are not ported to the "
-                             "torch engine yet", "NOT_SUPPORTED")
+            if _is_pooled(e.type):
+                # pooled params would need per-member host pools —
+                # template build treats this shape as ineligible
+                raise TypeError_(
+                    f"unsupported string expression {e!r}")
+            pos = self._param_pos[e.index]
+            # cache-marked literals are never NULL (NullLiteral stays in
+            # the shape), so the mask is statically absent
+            return lambda env: (env["params"][pos], None)
 
         assert isinstance(e, Call), e
         name = e.name
@@ -824,24 +865,33 @@ class PageProcessor:
     # runtime
 
     def _fill_luts(self, dicts, device) -> Tuple:
-        # keys use Dictionary.uid, never id(): a freed pool's ADDRESS can
-        # be reused by a new same-length pool — uid cannot alias
+        # keys use Dictionary.uid, never id(): shared processors outlive
+        # queries, and a freed pool's ADDRESS can be reused by a new
+        # same-length pool — uid cannot alias
         luts = []
-        for i, slot in enumerate(self.slots):
-            key = (i, tuple(d.uid for d in dicts if d is not None),
-                   tuple(len(d) for d in dicts if d is not None), device)
-            lut = self._lut_cache.get(key)
-            if lut is None:
-                lut = torch.from_numpy(pad_lut(slot.fill(dicts))).to(device)
-                self._lut_cache[key] = lut
-                if len(self._lut_cache) > 256:
-                    self._lut_cache.clear()
-            luts.append(lut)
+        with self._cache_lock:
+            for i, slot in enumerate(self.slots):
+                key = (i, tuple(d.uid for d in dicts if d is not None),
+                       tuple(len(d) for d in dicts if d is not None),
+                       device)
+                lut = self._lut_cache.get(key)
+                if lut is None:
+                    lut = torch.from_numpy(
+                        pad_lut(slot.fill(dicts))).to(device)
+                    self._lut_cache[key] = lut
+                    if len(self._lut_cache) > 256:
+                        self._lut_cache.clear()
+                luts.append(lut)
         return tuple(luts)
 
-    def _run(self, cols, nulls, valid, luts):
+    def _run(self, cols, nulls, valid, luts, params=(), shape=None):
+        """One pass of the program. ``shape`` is the lane shape of every
+        output: ``valid.shape`` for one statement, ``(B, n)`` for a
+        burst (the parameters then carry the ``(B, 1)`` axis)."""
         device = valid.device
+        shape = valid.shape if shape is None else shape
         env = {"cols": cols, "nulls": nulls, "luts": luts, "device": device,
+               "params": params,
                "true": torch.tensor(True, device=device),
                "false": torch.tensor(False, device=device)}
         new_valid = valid
@@ -852,21 +902,61 @@ class PageProcessor:
         out_cols, out_nulls = [], []
         for plan, proj in zip(self._proj_plans, self.projections):
             r, n = plan(env)
-            out_cols.append(_lanes(r.to(storage_dtype(proj.type)), valid))
-            out_nulls.append(_lanes(_nz(env, n), valid))
-        return out_cols, out_nulls, new_valid
+            out_cols.append(_lanes(r.to(storage_dtype(proj.type)), shape))
+            out_nulls.append(_lanes(_nz(env, n), shape))
+        return out_cols, out_nulls, _lanes(new_valid, shape)
 
-    def process(self, dpage: DevicePage) -> DevicePage:
+    def bind_params(self, values: Tuple) -> Tuple:
+        """Raw bindings for ONE statement, ordered by this program's
+        consumed slots.  ``values`` holds the python literal value per
+        GLOBAL slot index (the shape's full literal vector)."""
+        return tuple(
+            param_raw(self._param_types[i], values[i])
+            for i in self.param_indices)
+
+    def process(self, dpage: DevicePage, params: Tuple = ()) -> DevicePage:
+        """Run the program over one page; ``params`` are the raw
+        bindings of the consumed slots (``bind_params``), lowered to
+        0-d tensors exactly as a baked ``Literal`` is."""
         dicts = dpage.dictionaries
-        luts = self._fill_luts(dicts, dpage.device)
+        device = dpage.device
+        luts = self._fill_luts(dicts, device)
+        bound = tuple(torch.as_tensor(p, device=device) for p in params)
         cols, nulls, valid = self._run(dpage.cols, dpage.nulls, dpage.valid,
-                                       luts)
-        return DevicePage(self.output_types, cols, nulls, valid,
-                          self._resolve_out_dicts(dicts))
+                                       luts, bound)
+        with self._cache_lock:
+            out_dicts = self._resolve_out_dicts(dicts)
+        return DevicePage(self.output_types, cols, nulls, valid, out_dicts)
+
+    def process_batched(self, cols, nulls, valid, dicts, params_batch,
+                        mode: str = "shared"):
+        """Run a whole burst of B statements in one pass.
+
+        ``params_batch`` is a tuple (one entry per consumed slot, in
+        ``param_indices`` order) of stacked ``(B,)`` tensors. In
+        ``"shared"`` mode ``cols``/``nulls``/``valid`` are one page
+        every member reads (no batch axis); in ``"carried"`` mode they
+        are ``(B, n)``. Returns ``(cols, nulls, valid, out_dicts)`` with
+        a leading batch axis on every lane — the caller demuxes per
+        statement. LUTs are value-independent of the parameters (string
+        parameters make a shape template-ineligible), so they never
+        batch."""
+        device = valid.device
+        depth = int(params_batch[0].shape[0]) if params_batch \
+            else int(valid.shape[0])
+        luts = self._fill_luts(dicts, device)
+        bound = tuple(p.to(device).reshape(-1, 1) for p in params_batch)
+        out_cols, out_nulls, new_valid = self._run(
+            cols, nulls, valid, luts, bound,
+            shape=(depth, valid.shape[-1]))
+        with self._cache_lock:
+            out_dicts = self._resolve_out_dicts(dicts)
+        return out_cols, out_nulls, new_valid, out_dicts
 
     def _resolve_out_dicts(self, dicts) -> List[Optional[Dictionary]]:
-        """Output dictionary per projection (pool identity must be
-        stable across pages)."""
+        """Output dictionary per projection (caller holds _cache_lock:
+        pool identity must be stable across pages AND across the
+        concurrent queries sharing this processor)."""
         out_dicts = []
         for j, proj in enumerate(self.projections):
             if _is_pooled(proj.type):
@@ -916,11 +1006,12 @@ def _scalar(env, v) -> torch.Tensor:
     return torch.as_tensor(v, device=env["device"])
 
 
-def _lanes(x: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
-    """``x`` as one contiguous lane per row (a 0-d literal broadcasts)."""
-    if x.shape == valid.shape:
+def _lanes(x: torch.Tensor, shape) -> torch.Tensor:
+    """``x`` as one contiguous lane per row of ``shape`` (a 0-d literal,
+    a ``(B, 1)`` parameter or a shared ``(n,)`` column broadcasts)."""
+    if x.shape == shape:
         return x
-    return x.expand(valid.shape).contiguous()
+    return x.expand(shape).contiguous()
 
 
 def _nz(env, n):

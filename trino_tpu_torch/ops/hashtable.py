@@ -84,24 +84,15 @@ def mix_operands(key_ops: Sequence[torch.Tensor], n: int, device
     return h
 
 
-def hash_group_ids(key_ops: Sequence[torch.Tensor], valid: torch.Tensor,
-                   rounds: int = PROBE_ROUNDS, exact: bool = True):
-    """Vectorized insert-or-lookup over one page.
+def hash_insert(key_ops: Sequence[torch.Tensor], valid: torch.Tensor,
+                rounds: int = PROBE_ROUNDS):
+    """The linear-probe rounds of one vectorized insert-or-lookup.
 
-    key_ops: flattened (tag, int64) grouping operands (integer dtypes).
-    valid:   bool lane mask; invalid lanes get the dump gid ``capacity``.
-
-    Returns (gid, group_rows, ngroups, overflow):
-      gid        int32 (cap,)   dense group id per row, first-occurrence
-                                order; invalid lanes get ``cap``
-      group_rows int32 (cap,)   representative row index per group id
-      ngroups    int            number of groups assigned
-      overflow   bool           exact mode only: some row exhausted its
-                                probe budget and NO gid is trustworthy
-                                (caller must fall back). In non-exact
-                                mode always False: unresolved rows become
-                                their own singleton groups.
-    """
+    Returns (rep, resolved): ``rep`` int32 (cap,) is the representative
+    (owning) row of each valid row's group — ``cap`` for a row that
+    exhausted its probe budget, the row itself for an invalid lane —
+    and ``resolved`` marks the rows whose group is known (invalid lanes
+    count as resolved)."""
     device = valid.device
     cap = valid.shape[0]
     # 2x capacity rounded up to a power of two (pages are pow2-padded
@@ -142,6 +133,31 @@ def hash_group_ids(key_ops: Sequence[torch.Tensor], valid: torch.Tensor,
             eq = eq & (op == op[owner_safe])
         rep = torch.where(eq, owner, rep)
         resolved = resolved | eq
+    return rep, resolved
+
+
+def hash_group_ids(key_ops: Sequence[torch.Tensor], valid: torch.Tensor,
+                   rounds: int = PROBE_ROUNDS, exact: bool = True):
+    """Vectorized insert-or-lookup over one page.
+
+    key_ops: flattened (tag, int64) grouping operands (integer dtypes).
+    valid:   bool lane mask; invalid lanes get the dump gid ``capacity``.
+
+    Returns (gid, group_rows, ngroups, overflow):
+      gid        int32 (cap,)   dense group id per row, first-occurrence
+                                order; invalid lanes get ``cap``
+      group_rows int32 (cap,)   representative row index per group id
+      ngroups    int            number of groups assigned
+      overflow   bool           exact mode only: some row exhausted its
+                                probe budget and NO gid is trustworthy
+                                (caller must fall back). In non-exact
+                                mode always False: unresolved rows become
+                                their own singleton groups.
+    """
+    device = valid.device
+    cap = valid.shape[0]
+    row_idx = torch.arange(cap, dtype=torch.int32, device=device)
+    rep, resolved = hash_insert(key_ops, valid, rounds)
 
     unresolved = ~resolved
     if exact:

@@ -569,8 +569,11 @@ class HashBuilderOperator(Operator):
         """First revocation: decide the fan-out and enter partitioned
         mode. The session's ``hybrid_join_fanout`` wins; otherwise the
         fan-out is sized so one partition fits in ~1/4 of the pool, with
-        the bytes seen so far doubled as the guess of the whole build."""
+        the bytes seen so far doubled as the guess of the whole build,
+        rounded through the process-wide ``KERNEL_SIZING`` history as the
+        JAX engine rounds it."""
         from ..exec.memory import device_page_bytes
+        from .kernel_sizing import KERNEL_SIZING
 
         opts = self._hybrid or {}
         if opts.get("fanout"):
@@ -581,7 +584,10 @@ class HashBuilderOperator(Operator):
                             if isinstance(p, DevicePage))
             per_part = max(1, pool.max_bytes // 4)
             need = max(4, -(-dev_bytes * 2 // per_part))
-            fanout, source = padded_size(need), "local"
+            fanout = KERNEL_SIZING.suggest(
+                ("hybrid_join_fanout", len(self.key_channels)),
+                need, minimum=4)
+            source = "local"
         fanout = padded_size(max(2, min(int(fanout), 256)), minimum=2)
         self._hstate = HybridJoinState(
             fanout, max_depth=int(opts.get("max_depth", 3)),

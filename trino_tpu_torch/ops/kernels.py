@@ -38,6 +38,9 @@ _lib: Optional[ctypes.CDLL] = None
 #: rows per tile of the kernel, read from the library once it is loaded
 _tile_rows = 0
 _build_lock = threading.Lock()
+#: guards the launch counters: a server runs statements on several
+#: threads, and ``launches += 1`` is not atomic under threads
+_count_lock = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -265,8 +268,21 @@ def segment_reduce_columns(cols: Sequence[torch.Tensor], gid: torch.Tensor,
         msg = lib.segment_reduce_error_string(rc).decode(errors="replace")
         raise RuntimeError(f"segment_reduce launch failed: CUDA error "
                            f"{rc} ({msg})")
-    segment_reduce.launches += 1
+    with _count_lock:
+        segment_reduce.launches += 1
     return outs
+
+
+def segment_tile_rows(device) -> int:
+    """Rows per tile of the kernel on ``device`` (1 on the CPU, whose
+    plain version has no tiles). A caller that lays several independent
+    problems end to end in one call starts each at a multiple of this,
+    so every problem sees the kernel's tile edges where it would see
+    them alone, and a float sum associates in the same order."""
+    if torch.device(device).type != "cuda":
+        return 1
+    _library()
+    return _tile_rows
 
 
 def segment_reduce(col: torch.Tensor, gid: torch.Tensor, num_segments: int,

@@ -77,10 +77,13 @@ class TableScanOperator(SourceOperator):
 
     def __init__(self, connector: Connector, columns: Sequence[ColumnHandle],
                  device, dynamic_filters: Sequence = (),
-                 coalesce_rows: Optional[int] = None):
+                 coalesce_rows: Optional[int] = None, progress=None):
         self.connector = connector
         self.columns = list(columns)
         self.device = device
+        #: telemetry.progress.QueryProgress fed host-page row counts as
+        #: splits are read — a plain int add, never a device sync
+        self.progress = progress
         self.dynamic_filters = list(dynamic_filters)
         self.coalesce_rows = coalesce_rows
         self._buffer: List[Page] = []
@@ -134,6 +137,8 @@ class TableScanOperator(SourceOperator):
                 return self._flush() if self._buffer else None
             if page.num_rows == 0:
                 continue
+            if self.progress is not None:
+                self.progress.add_rows(page.num_rows)
             target = self.coalesce_rows
             if target and page.num_rows < target:
                 self._buffer.append(page)
@@ -156,8 +161,12 @@ class FilterProjectOperator(Operator):
     ScanFilterAndProjectOperator / FilterAndProjectOperator +
     operator/project/PageProcessor.java)."""
 
-    def __init__(self, processor: PageProcessor):
+    def __init__(self, processor: PageProcessor, params: tuple = ()):
         self.processor = processor
+        #: template-parameter bindings: raw scalars for the processor's
+        #: consumed slots — a template plan executed for one statement
+        #: binds its literal vector here
+        self.params = tuple(params)
         self._pending: Optional[DevicePage] = None
         self._done = False
 
@@ -166,7 +175,7 @@ class FilterProjectOperator(Operator):
 
     def add_input(self, page: DevicePage):
         assert self._pending is None
-        self._pending = self.processor.process(page)
+        self._pending = self.processor.process(page, self.params)
 
     def get_output(self) -> Optional[DevicePage]:
         out, self._pending = self._pending, None

@@ -1,20 +1,28 @@
 """LocalQueryRunner: the whole engine (parser -> planner -> operators) in
-one process, on one torch device.
+one process, on one torch device, with its serving layer.
 
 Reference analog: ``core/trino-main/.../testing/LocalQueryRunner.java:254``
-— the single-node, no-HTTP engine. The path is the JAX engine's
-(``trino_tpu/runner.py``: parse -> analyze -> plan -> optimize ->
-LocalExecutionPlanner -> Driver) without its plan and result caches, plan
-templates, batching, history-based statistics, access control and the
-``system`` catalog (all serving work). It runs every one-device statement
-of the JAX engine: queries (scans with dynamic filters from join builds,
-filter/project, UNNEST, aggregation, DISTINCT, hash joins with the
-sorted-index and matmul strategies and the hybrid build under memory
-pressure, UNION/INTERSECT/EXCEPT, scalar subqueries, window functions,
-grouped top-N, sort, TopN, limit/offset), CTAS and INSERT, CREATE/DROP
-TABLE, DELETE (memory connector), SHOW SESSION/CATALOGS/SCHEMAS/TABLES/
-COLUMNS, SET SESSION, EXPLAIN and EXPLAIN ANALYZE. EXPLAIN ANALYZE
-VERBOSE needs the compiled-program profiler and raises NOT_SUPPORTED.
+— the single-node engine. The path is the JAX engine's
+(``trino_tpu/runner.py``): admission (resource groups), access control
+and query events around each statement; the result cache, the plan
+cache, plan templates (one optimized plan per statement shape, literals
+bound as ``ParamRef`` parameters) and the shared processor cache on the
+hot path; admission batching (``execute_batch``), whose same-shape
+members run as one burst per pipeline stage (``exec/batched.py``); and
+the ``system`` catalog over this runner's live state. It runs every
+one-device statement of the JAX engine: queries (scans with dynamic
+filters from join builds, filter/project, UNNEST, aggregation, DISTINCT,
+hash joins with the sorted-index and matmul strategies and the hybrid
+build under memory pressure, UNION/INTERSECT/EXCEPT, scalar subqueries,
+window functions, grouped top-N, sort, TopN, limit/offset), CTAS and
+INSERT, CREATE/DROP TABLE, DELETE (memory connector), SHOW SESSION/
+CATALOGS/SCHEMAS/TABLES/COLUMNS, SET SESSION, EXPLAIN and EXPLAIN
+ANALYZE.
+
+Left out of the JAX engine's runner: history-based statistics (this
+runner plans with ``hbo=None``, whatever ``hbo_enabled`` says, so a
+burst always pads to a power of two), the compiled-program profiler
+(EXPLAIN ANALYZE VERBOSE raises NOT_SUPPORTED) and the slow-query log.
 
 The device is explicit: ``device`` defaults to ``"cuda"``, and a runner
 asked for CUDA on a machine without a GPU raises instead of running on
@@ -25,7 +33,7 @@ from __future__ import annotations
 
 import time
 from dataclasses import dataclass
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -37,7 +45,6 @@ from .planner.optimizer import optimize
 from .planner.plan import OutputNode, plan_tree_str
 from .sql import ast
 from .sql.analyzer import AnalysisError, Session
-from .sql.parser import parse_statement
 
 
 @dataclass
@@ -51,16 +58,71 @@ class QueryResult:
 class LocalQueryRunner:
     def __init__(self, connectors: Dict[str, Connector],
                  session: Optional[Session] = None,
-                 desired_splits: int = 4, device="cuda"):
+                 desired_splits: int = 4, device="cuda",
+                 access_control=None,
+                 event_listeners: Optional[Sequence] = None,
+                 resource_groups=None,
+                 result_cache_bytes: int = 64 << 20):
+        from .cache import QueryCache
+        from .events import EventListenerManager
+        from .security import ALLOW_ALL
+
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
                 "LocalQueryRunner: device 'cuda' requested but no CUDA "
                 "device is available; pass device='cpu' to run on the CPU")
-        self.metadata = Metadata(dict(connectors))
+        connectors = dict(connectors)
+        if "system" not in connectors:
+            # the system catalog serves THIS runner's live state
+            # (system.runtime.queries/tasks/metrics)
+            from .connectors.system import SystemConnector
+
+            connectors["system"] = SystemConnector(source=self)
+        self.metadata = Metadata(connectors)
         self.session = session or Session(
             catalog=next(iter(connectors), None))
         self.desired_splits = desired_splits
+        self.access_control = access_control or ALLOW_ALL
+        self.event_manager = EventListenerManager(
+            list(event_listeners or ()))
+        self.resource_groups = resource_groups
+        # plan + result + shared-processor caches (cache.py), gated per
+        # query by plan_cache_enabled / result_cache_enabled
+        self.query_cache = QueryCache(
+            self.metadata, result_cache_bytes=result_cache_bytes)
+
+    def _scan_refs(self, root: OutputNode) -> List[tuple]:
+        """Every scanned ``(catalog, schema, table, columns)`` of a plan
+        — the access-check unit, also stored beside cached results so a
+        cache hit re-enforces SELECT for the requesting user."""
+        from .planner.plan import TableScanNode
+
+        out: List[tuple] = []
+
+        def walk(node):
+            if isinstance(node, TableScanNode):
+                out.append((node.catalog, node.table.schema,
+                            node.table.table,
+                            [col.name for _, col in node.assignments]))
+            for s in node.sources:
+                walk(s)
+
+        walk(root)
+        return out
+
+    def _check_table_access(self, stmt: ast.Statement, root: OutputNode,
+                            user: Optional[str] = None):
+        """Enforce SELECT on every scanned table with its column set
+        (reference: AccessControlManager.checkCanSelectFromColumns at
+        analysis time).  ``user`` is the effective tenant (protocol
+        header), defaulting to the session user."""
+        user = user or self.session.user
+        for catalog, schema, table, cols in self._scan_refs(root):
+            self.access_control.check_can_select(user, catalog, schema,
+                                                 table, cols)
+
+    # ------------------------------------------------------------------
 
     def plan_statement(self, stmt: ast.Statement) -> OutputNode:
         planner = LogicalPlanner(self.metadata, self.session)
@@ -68,9 +130,440 @@ class LocalQueryRunner:
         return optimize(root, self.metadata, planner.allocator,
                         self.session, hbo=None)
 
-    def execute(self, sql: str) -> QueryResult:
-        """Run one statement (see the module docstring for the set)."""
-        stmt = parse_statement(sql)
+    def execute(self, sql: str, user: Optional[str] = None,
+                progress=None) -> QueryResult:
+        """Admission (resource group) + access control + event firing
+        around one statement (reference: DispatchManager.createQuery's
+        admission path + QueryMonitor).  ``user`` overrides the session
+        user for admission routing (multi-tenant protocol serving);
+        ``progress`` is an optional telemetry.progress.QueryProgress
+        the execution feeds live (protocol GET /v1/query/{id})."""
+        user = user or self.session.user
+        self.access_control.check_can_execute_query(user)
+        if self.resource_groups is not None:
+            from . import session_properties as SP
+
+            group = self.resource_groups.select(user)
+            # memory-aware admission: the query's budget is its charge
+            # against the group's soft/hard memory limits
+            with group.run(memory_bytes=SP.value(
+                    self.session, "query_max_memory_bytes")):
+                return self._monitored_execute(sql, user,
+                                               progress=progress)
+        return self._monitored_execute(sql, user, progress=progress)
+
+    # -- plan templates ------------------------------------------------
+
+    @staticmethod
+    def _template_ineligible_reason(shape) -> Optional[str]:
+        """Pre-walk guard for the SILENT value-dependence hazard: a
+        GROUP BY 1 / ORDER BY 1 ordinal is a LongLiteral the shape
+        turned into a Parameter, and the logical planner's
+        ``isinstance(e, ast.LongLiteral)`` ordinal checks would quietly
+        plan group-by-constant instead of group-by-column.  (Sites that
+        REQUIRE a literal value — window offsets, VALUES rows, string
+        IN lists — raise catchably during the template's trial plan
+        instead, so only the silent sites need a walk.)"""
+        from .cache import _walk_nodes
+
+        for node in _walk_nodes(shape):
+            if isinstance(node, ast.GroupBy):
+                exprs = list(node.expressions) + \
+                    [e for s in node.sets for e in s]
+                if any(isinstance(e, ast.Parameter) for e in exprs):
+                    return "ordinal_param"
+            elif isinstance(node, ast.SortItem):
+                if isinstance(node.key, ast.Parameter):
+                    return "ordinal_param"
+        return None
+
+    def _plan_template(self, pq, user: str, uses: int = 1):
+        """The shape's ``cache.PlanTemplate`` — built, cached, or None
+        (disabled / not yet earned / fallback).  A template plans the
+        normalized shape directly: ``ast.Parameter`` markers lower to
+        opaque ``ParamRef`` IR via the analyzer's template-parameter
+        context, so optimizer constant folding and pushdown cannot
+        specialize on a literal value.  A trial local plan runs at
+        build time so every value dependence of the operators (string
+        params, LIKE patterns, VALUES rows, window offsets) fails HERE
+        — loudly, negative-cached by reason — never at member
+        execution."""
+        from . import session_properties as SP
+
+        if not SP.value(self.session, "plan_template_enabled"):
+            return None
+        if not pq.is_query or not pq.literals:
+            return None
+        tkey = self.query_cache.template_key(pq, self.session, user=user)
+        if tkey is None:
+            return None
+        tc = self.query_cache.templates
+        total_uses = tc.note_uses(pq.shape, uses)
+        seeds = None
+        shape_fp = None
+        if SP.value(self.session, "plan_template_seed_enabled"):
+            from .cache import statement_fingerprint, template_seeds
+
+            # cluster-wide earn state: a process whose seed carries this
+            # shape's use total rides the already-earned template on its
+            # FIRST statement instead of re-earning min_shape_uses
+            seeds = template_seeds()
+            shape_fp = statement_fingerprint(pq.shape)
+            total_uses = max(total_uses, seeds.uses(shape_fp))
+            seeds.note(shape_fp, total_uses)
+        hit = tc.lookup(tkey)
+        if hit is not None:
+            kind, val = hit
+            return val if kind == "hit" else None
+        if total_uses < SP.value(self.session,
+                                 "batched_execution_min_shape_uses"):
+            return None  # not yet earned: the build trial must amortize
+        max_entries = SP.value(self.session, "plan_cache_entries")
+        if seeds is not None:
+            seeded_reason = seeds.fallback_reason(shape_fp)
+            if seeded_reason is not None:
+                # another process already proved the shape
+                # value-dependent: negative-cache locally without paying
+                # a trial plan
+                tc.store_fallback(tkey, seeded_reason, max_entries)
+                return None
+        reason = self._template_ineligible_reason(pq.shape)
+        if reason is not None:
+            tc.store_fallback(tkey, reason, max_entries)
+            if seeds is not None:
+                seeds.note_fallback_shape(shape_fp, reason)
+            return None
+        from .cache import PlanTemplate, analyze_literal_tokens
+        from .expr.compiler import param_raw
+        from .sql.analyzer import template_parameters
+
+        try:
+            lits = analyze_literal_tokens(pq.literals, self.session)
+            ptypes = tuple(lit.type for lit in lits)
+            if any(getattr(t, "is_pooled", False) for t in ptypes):
+                tc.store_fallback(tkey, "string_param", max_entries)
+                if seeds is not None:
+                    seeds.note_fallback_shape(shape_fp, "string_param")
+                return None
+            with template_parameters(ptypes):
+                root = self.plan_statement(pq.shape)
+                # trial local plan (head literals bound): processor
+                # construction is where remaining literal-value
+                # dependence surfaces, catchably
+                trial = self._make_local_planner(
+                    processor_cache=self.query_cache.processors,
+                    params={i: param_raw(t, lit.value)
+                            for i, (t, lit)
+                            in enumerate(zip(ptypes, lits))})
+                try:
+                    trial.plan(root)
+                finally:
+                    trial.memory_pool.close()
+        except T.TrinoError:
+            # AnalysisError / TypeError_ / NOT_SUPPORTED — planning or
+            # compilation genuinely needs a literal value
+            tc.store_fallback(tkey, "value_dependent", max_entries)
+            if seeds is not None:
+                seeds.note_fallback_shape(shape_fp, "value_dependent")
+            return None
+        template = PlanTemplate(root, ptypes,
+                                scan_refs=self._scan_refs(root))
+        tc.store(tkey, template, max_entries)
+        return template
+
+    def _template_binding(self, template, pq) -> Optional[Tuple]:
+        """This member's literal values per ParamRef slot under
+        ``template``, or None when its analyzed literal types drift
+        from the template's (varchar lengths, decimal scales — a
+        different-typed plan)."""
+        from .cache import analyze_literal_tokens
+
+        try:
+            lits = analyze_literal_tokens(pq.literals, self.session)
+        except T.TrinoError:
+            return None
+        if tuple(lit.type for lit in lits) != template.param_types:
+            return None
+        return tuple(lit.value for lit in lits)
+
+    # -- admission batching --------------------------------------------
+
+    def execute_batch(self, sqls: Sequence[str],
+                      user: Optional[str] = None) -> List:
+        """Admission batching: ONE resource-group slot covers a burst of
+        (typically same-shape) statements — the dispatcher-side
+        amortization for high-QPS tenants.  Same-shape deterministic
+        members ride the plan template's batched path: their literal
+        vectors stack on a (B,) axis and every pipeline stage runs once
+        for the burst, demuxed positionally (result-cache hits
+        short-circuit without occupying a lane; ACL is enforced per
+        member).  Identical texts coalesce to a single execution whose
+        result demuxes to every submitter; everything else executes
+        serially inside the slot through the plan/processor caches.
+        Returns one QueryResult OR Exception per statement,
+        positionally — a failure fails only its own statement, not the
+        batch."""
+        user = user or self.session.user
+        self.access_control.check_can_execute_query(user)
+        if self.resource_groups is not None:
+            from . import session_properties as SP
+
+            group = self.resource_groups.select(user)
+            with group.run(memory_bytes=SP.value(
+                    self.session, "query_max_memory_bytes")):
+                return self._run_batch(sqls, user)
+        return self._run_batch(sqls, user)
+
+    def _coalescable(self, sql: str) -> bool:
+        # only deterministic plain queries may demux one execution to
+        # several submitters: repeat INSERTs must run per statement,
+        # and random()-class calls must diverge exactly as they would
+        # serially
+        try:
+            pq = self.query_cache.parse(sql, self.session)
+        except Exception:
+            return False
+        return pq.is_query and pq.deterministic
+
+    def _run_batch(self, sqls: Sequence[str], user: str) -> List:
+        from . import session_properties as SP
+
+        out: List = [None] * len(sqls)
+        done = [False] * len(sqls)
+        coalesced = 0
+        if SP.value(self.session, "batched_execution_enabled"):
+            # group batchable members by shape (the protocol drains
+            # same-shape bursts, but direct callers may mix)
+            groups: Dict[object, List[int]] = {}
+            for i, sql in enumerate(sqls):
+                try:
+                    pq = self.query_cache.parse(sql, self.session)
+                except Exception:
+                    continue  # fails identically on the serial path
+                if pq.is_query and pq.deterministic and pq.literals:
+                    groups.setdefault(pq.shape, []).append(i)
+            for idxs in groups.values():
+                if len(idxs) < 2:
+                    continue  # nothing to amortize into one burst
+                served = self._try_batched(
+                    [(i, sqls[i]) for i in idxs], user)
+                for i, res in served.items():
+                    out[i] = res
+                    done[i] = True
+        memo: Dict[str, object] = {}
+        for i, sql in enumerate(sqls):
+            if done[i]:
+                continue
+            if sql in memo:
+                coalesced += 1
+                out[i] = memo[sql]
+                continue
+            try:
+                res = self._monitored_execute(sql, user)
+            except Exception as e:  # demuxed per statement
+                out[i] = e
+                if self._coalescable(sql):
+                    memo[sql] = e
+            else:
+                out[i] = res
+                if self._coalescable(sql):
+                    memo[sql] = res
+        self.query_cache.note_batch(len(out), coalesced)
+        return out
+
+    def _try_batched(self, members: List[tuple], user: str) -> Dict:
+        """Attempt the one-burst path for one same-shape group.
+        Returns {position: QueryResult|Exception} for every member this
+        path fully handled (batched lanes, result-cache
+        short-circuits, per-member ACL failures, coalesced duplicates);
+        members NOT in the dict fall back to the serial loop — which
+        still rides the shared template serially, so the fallback is
+        slower, never different."""
+        from . import session_properties as SP
+        from .block import padded_size
+        from .exec.batched import BatchIneligible, execute_batched
+
+        served: Dict[int, object] = {}
+        pqs = {i: self.query_cache.parse(sql, self.session)
+               for i, sql in members}
+        pq0 = pqs[members[0][0]]
+        template = self._plan_template(pq0, user, uses=len(members))
+        if template is None:
+            return served
+        tc = self.query_cache.templates
+        result_caching = SP.value(self.session, "result_cache_enabled")
+        # per-member admission: ACL, result-cache short-circuit,
+        # identical-literal-vector coalescing into one lane
+        lanes: List[tuple] = []       # (literals, [positions], key)
+        lane_of: Dict[tuple, int] = {}
+        for pos, sql in members:
+            pq = pqs[pos]
+            try:
+                # per-tenant ACL per statement, exactly as serial
+                self._check_table_access(pq.stmt, template.root, user)
+            except Exception as e:
+                served[pos] = e
+                continue
+            key = self.query_cache.cache_key(pq, self.session, user=user)
+            if result_caching and key is not None:
+                hit = self.query_cache.results.lookup(key)
+                if hit is not None:
+                    # full-key hit: serve WITHOUT occupying a lane
+                    names, types_, rows, _nb, scans = hit
+                    try:
+                        for catalog, schema, table, cols in scans:
+                            self.access_control.check_can_select(
+                                user, catalog, schema, table, cols)
+                    except Exception as e:
+                        served[pos] = e
+                        continue
+                    served[pos] = QueryResult(
+                        list(names), list(types_), list(rows),
+                        stats={"result_cache": "hit"})
+                    with self.query_cache._lock:
+                        self.query_cache.result_shortcircuits += 1
+                    continue
+            if pq.literals in lane_of:
+                lanes[lane_of[pq.literals]][1].append(pos)
+            else:
+                lane_of[pq.literals] = len(lanes)
+                lanes.append((pq.literals, [pos], key))
+        if not lanes:
+            return served
+        # bind each lane's literal vector; type drift falls back
+        bound: List[tuple] = []       # (values, positions, key)
+        for _lits, positions, key in lanes:
+            values = self._template_binding(template, pqs[positions[0]])
+            if values is None:
+                tc.note_fallback("param_type_drift")
+                continue
+            bound.append((values, positions, key))
+        if not bound:
+            return served
+        max_depth = SP.value(self.session, "batched_execution_max_depth")
+        from .expr.compiler import param_raw
+
+        for start in range(0, len(bound), max_depth):
+            chunk = bound[start:start + max_depth]
+            B = len(chunk)
+            # no history-based statistics: always pad to a power of two
+            depth = padded_size(B, minimum=1)
+            padded = [values for values, _, _ in chunk] + \
+                [chunk[-1][0]] * (depth - B)
+            # operator construction binds the first lane's values (the
+            # serial-fallback contract); execute_batched drives the
+            # processors with the STACKED vectors instead
+            local = self._make_local_planner(
+                processor_cache=self.query_cache.processors,
+                params={i: param_raw(t, chunk[0][0][i])
+                        for i, t in enumerate(template.param_types)})
+            try:
+                try:
+                    plan = local.plan(template.root)
+                    result = execute_batched(
+                        plan, template.param_types, padded, B)
+                except BatchIneligible as e:
+                    tc.note_fallback(e.reason)
+                    return served  # remaining members run serially
+                except Exception as e:
+                    # execution error: every lane would hit it serially
+                    for _, positions, _ in chunk:
+                        for pos in positions:
+                            served[pos] = e
+                            self._batch_member_event(
+                                members, pos, user, error=e)
+                    continue
+            finally:
+                local.memory_pool.close()
+            for reason in result.dispositions:
+                tc.note_disposition(reason)
+            with self.query_cache._lock:
+                self.query_cache.batched_launches += \
+                    B - len(result.spilled)
+                self.query_cache.batched_spills += len(result.spilled)
+            for lane_i, (values, positions, key) in enumerate(chunk):
+                if lane_i in result.spilled:
+                    # this lane overflowed a unified per-lane capacity
+                    # (join expansion or agg hash budget): it — and only
+                    # it — falls back to the serial loop, which still
+                    # rides the template serially
+                    tc.note_fallback("lane_overflow")
+                    continue
+                rows: List[tuple] = []
+                for p in result.pages[lane_i]:
+                    rows.extend(p.to_rows())
+                res = QueryResult(
+                    plan.column_names, plan.output_types, rows,
+                    stats={"plan_template": "hit",
+                           "batched_depth": depth})
+                if result_caching and key is not None and \
+                        self.query_cache.cache_key(
+                            pqs[positions[0]], self.session,
+                            user=user) == key:
+                    self.query_cache.results.store(
+                        key, res.column_names, res.types, list(rows),
+                        scans=template.scan_refs)
+                for extra, pos in enumerate(positions):
+                    served[pos] = res
+                    self._batch_member_event(members, pos, user,
+                                             rows=len(rows))
+                    if extra:
+                        # identical literal vector
+                        with self.query_cache._lock:
+                            self.query_cache.coalesced += 1
+        return served
+
+    def _batch_member_event(self, members, pos, user, rows=0,
+                            error=None):
+        """Query lifecycle events for a batched member — the serial
+        path fires these through _monitored_execute, and
+        system.runtime.queries must see batched statements too."""
+        if not self.event_manager.listeners:
+            return
+        from .events import QueryMonitor
+
+        sql = dict(members)[pos]
+        monitor = QueryMonitor(self.event_manager, user, sql)
+        monitor.created()
+        if error is not None:
+            monitor.failed(error)
+        else:
+            monitor.completed(rows)
+
+    def _monitored_execute(self, sql: str, user: str,
+                           progress=None) -> QueryResult:
+        from .events import QueryMonitor
+
+        monitor = QueryMonitor(self.event_manager, user, sql) \
+            if self.event_manager.listeners else None
+        t0 = time.perf_counter()
+        if monitor:
+            monitor.created()
+        try:
+            res = self._execute_sql(sql, user=user, progress=progress)
+        except Exception as e:
+            if monitor:
+                monitor.failed(e)
+            raise
+        wall_s = time.perf_counter() - t0
+        if monitor:
+            # the QueryStatistics analog: peak memory + wall ride the
+            # completed event into the history ring buffer that backs
+            # system.runtime.queries
+            monitor.completed(len(res.rows), stats={
+                "wall_ms": round(wall_s * 1e3, 2),
+                "peak_memory_bytes": ((res.stats or {}).get("memory")
+                                      or {}).get("peak_bytes", 0),
+            })
+        return res
+
+    def _execute_sql(self, sql: str, user: Optional[str] = None,
+                     progress=None) -> QueryResult:
+        """Run one statement (see the module docstring for the set);
+        the parse is memoized, so repeat texts skip the parser."""
+        user = user or self.session.user
+        pq = self.query_cache.parse(sql, self.session)
+        stmt = pq.stmt
         if isinstance(stmt, ast.Explain):
             if stmt.analyze:
                 return self._explain_analyze(stmt.statement,
@@ -89,6 +582,8 @@ class LocalQueryRunner:
             from .exec.local_planner import _eval_literal
             from .sql.analyzer import ExpressionAnalyzer, Scope
 
+            self.access_control.check_can_set_session_property(
+                self.session.user, stmt.name)
             an = ExpressionAnalyzer(Scope([], None), self.session)
             SP.set_property(self.session.properties, stmt.name,
                             _eval_literal(an.analyze(stmt.value)))
@@ -140,11 +635,88 @@ class LocalQueryRunner:
             raise T.TrinoError(
                 f"{type(stmt).__name__} is not ported to the torch engine "
                 "yet", "NOT_SUPPORTED")
-        return self._execute_query(stmt)
+        if isinstance(stmt, ast.Insert):
+            catalog, _, schema, table = self.metadata.resolve_target(
+                stmt.table, self.session)
+            self.access_control.check_can_insert(
+                user, catalog, schema, table)
+        return self._execute_query(pq, stmt, user, progress=progress)
 
-    def _execute_query(self, stmt: ast.Statement) -> QueryResult:
-        root = self.plan_statement(stmt)
-        local = self._make_local_planner()
+    def _execute_query(self, pq, stmt: ast.Statement, user: str,
+                       progress=None) -> QueryResult:
+        """The cached hot path.  Lookup order: result cache (rows, WITH
+        literals) -> plan cache (optimized root, skips analyze/plan/
+        optimize) -> plan template -> full planning.  Either cache key
+        embeds the session fingerprint and the referenced connectors'
+        snapshot versions, so SET SESSION and DDL/writes invalidate
+        loudly (the key moves) instead of silently serving stale plans.
+        Operator shells are re-instantiated per execution — splits,
+        memory pools, and dynamic filters stay per-query — but the
+        PageProcessors come from the shared cache."""
+        from . import session_properties as SP
+
+        plan_caching = SP.value(self.session, "plan_cache_enabled")
+        # the effective user is part of the key: tenants must never
+        # share entries (a per-user ACL would otherwise leak rows)
+        key = self.query_cache.cache_key(pq, self.session, user=user) \
+            if plan_caching else None
+        result_caching = key is not None and pq.deterministic and \
+            SP.value(self.session, "result_cache_enabled")
+        if result_caching:
+            hit = self.query_cache.results.lookup(key)
+            if hit is not None:
+                names, types_, rows, _nb, scans = hit
+                # SELECT is re-enforced on EVERY hit (defense in depth
+                # beside the user-scoped key): an ACL revocation must
+                # take effect immediately, cached rows or not
+                for catalog, schema, table, cols in scans:
+                    self.access_control.check_can_select(
+                        user, catalog, schema, table, cols)
+                # fresh list per hit: a caller sorting rows in place
+                # must not corrupt the cached copy
+                if progress is not None:
+                    progress.state = "FINISHED"
+                return QueryResult(list(names), list(types_),
+                                   list(rows),
+                                   stats={"result_cache": "hit"})
+        root = self.query_cache.plans.lookup(key) \
+            if key is not None else None
+        plan_hit = root is not None
+        template_params: Optional[Dict] = None
+        if root is None and key is not None:
+            # a shape template serves EVERY literal vector of this
+            # shape: one optimized root, literal values bound as
+            # ParamRef inputs at execution (the same processors the
+            # batched path runs).  Template roots are never stored in
+            # the plan cache — plan-cache executions pass no params.
+            template = self._plan_template(pq, user)
+            if template is not None:
+                values = self._template_binding(template, pq)
+                if values is None:
+                    self.query_cache.templates.note_fallback(
+                        "param_type_drift")
+                else:
+                    from .expr.compiler import param_raw
+
+                    template_params = {
+                        i: param_raw(t, v) for i, (t, v) in
+                        enumerate(zip(template.param_types, values))}
+                    root = template.root
+        if root is None:
+            root = self.plan_statement(stmt)
+            if key is not None:
+                self.query_cache.plans.store(
+                    key, root,
+                    SP.value(self.session, "plan_cache_entries"))
+        self._check_table_access(stmt, root, user)  # on EVERY run
+        if progress is not None:
+            # rows-based completion estimate from connector statistics
+            progress.total_rows = self._scan_rows_estimate(root)
+            progress.state = "RUNNING"
+        local = self._make_local_planner(
+            processor_cache=self.query_cache.processors
+            if plan_caching else None, progress=progress,
+            params=template_params)
         try:
             plan = local.plan(root)
             rows: List[tuple] = []
@@ -155,11 +727,43 @@ class LocalQueryRunner:
         finally:
             # reap spill files and free residue on success and failure
             local.memory_pool.close()
+        if progress is not None:
+            progress.state = "FINISHED"
         if local.dynamic_filters:
             stats["dynamic_filters"] = [df.stats()
                                         for df in local.dynamic_filters]
-        return QueryResult(plan.column_names, plan.output_types, rows,
-                           stats=stats)
+        if plan_hit:
+            stats["plan_cache"] = "hit"
+        if template_params is not None:
+            stats["plan_template"] = "hit"
+        res = QueryResult(plan.column_names, plan.output_types, rows,
+                          stats=stats)
+        if result_caching:
+            # re-derive the key AFTER execution: a write that landed
+            # mid-query moved the snapshot version, and a torn read
+            # must not freeze into the cache
+            if self.query_cache.cache_key(pq, self.session,
+                                          user=user) == key:
+                self.query_cache.results.store(
+                    key, res.column_names, res.types, list(rows),
+                    scans=self._scan_refs(root))
+        return res
+
+    def _scan_rows_estimate(self, root: OutputNode) -> int:
+        """Connector-statistics row estimate summed over the plan's
+        scans — the denominator of the rows-based progress fraction
+        (0 when no connector reports statistics)."""
+        total = 0.0
+        for catalog, schema, table, _cols in self._scan_refs(root):
+            try:
+                conn = self.metadata.connectors.get(catalog)
+                handle = conn.metadata().get_table_handle(schema, table)
+                stats = conn.metadata().get_statistics(handle)
+                if stats.row_count:
+                    total += stats.row_count
+            except Exception:
+                continue  # statistics are advisory, never fail a query
+        return int(total)
 
     def _explain_analyze(self, stmt: ast.Statement,
                          verbose: bool = False) -> QueryResult:
@@ -173,6 +777,7 @@ class LocalQueryRunner:
                 "profiler, which is not ported to the torch engine yet",
                 "NOT_SUPPORTED")
         root = self.plan_statement(stmt)
+        self._check_table_access(stmt, root)  # ANALYZE executes the query
         local = self._make_local_planner()
         pool = local.memory_pool
         try:
@@ -202,6 +807,50 @@ class LocalQueryRunner:
         return QueryResult(["Query Plan"], [T.VARCHAR],
                            [(line,) for line in lines])
 
+    def metrics_families(self) -> list:
+        """This runner's metric families for GET /v1/metrics and
+        system.runtime.metrics: process-level sources + query lifecycle
+        counters + resource-group queue depths when admission control is
+        configured + the cache, template and batching counters."""
+        from .telemetry.metrics import MetricsRegistry, process_families
+
+        reg = MetricsRegistry()
+        states = {"FINISHED": 0, "FAILED": 0}
+        for e in self.event_manager.history(10_000):
+            states[e.state] = states.get(e.state, 0) + 1
+        qc = reg.counter("trino_queries_total",
+                         "Completed queries by terminal state")
+        for state_name, n in sorted(states.items()):
+            qc.inc(n, state=state_name)
+        reg.gauge("trino_queries_running",
+                  "Queries currently executing").set(
+            len(self.event_manager.running()))
+        if self.resource_groups is not None:
+            g = reg.gauge("trino_resource_group_queries",
+                          "Resource-group admission state "
+                          "(kind=running|queued)")
+            m = reg.gauge("trino_resource_group_memory_reserved_bytes",
+                          "Memory budget admitted per resource group")
+            for name, running, queued, mem in \
+                    self.resource_groups.stats():
+                g.set(running, group=name, kind="running")
+                g.set(queued, group=name, kind="queued")
+                m.set(mem, group=name)
+            adm = reg.counter(
+                "trino_resource_group_admissions_total",
+                "Cumulative admission counters per resource group "
+                "(kind=admitted|queued_waits); queue_peak gauges the "
+                "deepest queue observed")
+            pk = reg.gauge("trino_resource_group_queue_peak",
+                           "Deepest admission queue observed per group")
+            for name, admitted, waits, peak in \
+                    self.resource_groups.counter_stats():
+                adm.inc(admitted, group=name, kind="admitted")
+                adm.inc(waits, group=name, kind="queued_waits")
+                pk.set(peak, group=name)
+        self.query_cache.add_families(reg)
+        return process_families() + reg.collect()
+
     def _connector(self, catalog: Optional[str]) -> Connector:
         conn = self.metadata.connectors.get(catalog or "")
         if conn is None:
@@ -211,8 +860,10 @@ class LocalQueryRunner:
     def _create_table(self, stmt: ast.CreateTable) -> QueryResult:
         from .connectors.spi import ColumnHandle
 
-        _, conn, schema, table = self.metadata.resolve_target(
+        catalog, conn, schema, table = self.metadata.resolve_target(
             stmt.name, self.session)
+        self.access_control.check_can_create_table(
+            self.session.user, catalog, schema, table)
         if stmt.if_not_exists and \
                 conn.metadata().get_table_handle(schema, table) is not None:
             return QueryResult(["result"], [T.BOOLEAN], [(True,)])
@@ -222,8 +873,10 @@ class LocalQueryRunner:
         return QueryResult(["result"], [T.BOOLEAN], [(True,)])
 
     def _drop_table(self, stmt: ast.DropTable) -> QueryResult:
-        _, conn, schema, table = self.metadata.resolve_target(
+        catalog, conn, schema, table = self.metadata.resolve_target(
             stmt.name, self.session)
+        self.access_control.check_can_drop_table(
+            self.session.user, catalog, schema, table)
         handle = conn.metadata().get_table_handle(schema, table)
         if handle is None:
             if stmt.if_exists:
@@ -243,6 +896,8 @@ class LocalQueryRunner:
 
         catalog, conn, schema, table = self.metadata.resolve_target(
             stmt.table, self.session)
+        self.access_control.check_can_delete(
+            self.session.user, catalog, schema, table)
         if not isinstance(conn, MemoryConnector):
             raise AnalysisError(
                 "DELETE is only supported on the memory connector")
@@ -283,8 +938,13 @@ class LocalQueryRunner:
             return SP.value(self.session, "desired_splits")
         return self.desired_splits
 
-    def _make_local_planner(self) -> LocalExecutionPlanner:
-        """Session-configured planner on this runner's device."""
+    def _make_local_planner(self, processor_cache=None, progress=None,
+                            params=None) -> LocalExecutionPlanner:
+        """Session-configured planner on this runner's device: ALL
+        execution paths (execute, EXPLAIN ANALYZE, the DELETE rewrite)
+        honor the same session knobs.  ``params`` binds a plan
+        template's ParamRef slots (global literal index -> raw scalar)
+        for one statement."""
         from . import session_properties as SP
         from .exec.memory import pool_from_session
 
@@ -301,7 +961,9 @@ class LocalQueryRunner:
             hybrid_join=SP.value(self.session, "hybrid_join_enabled"),
             hybrid_join_fanout=SP.value(self.session, "hybrid_join_fanout"),
             hybrid_join_max_depth=SP.value(self.session,
-                                           "hybrid_join_max_depth"))
+                                           "hybrid_join_max_depth"),
+            processor_cache=processor_cache, progress=progress,
+            params=params)
 
 
 def _operator_metrics(drivers) -> List[dict]:
