@@ -85,8 +85,9 @@ Phases, one JSON line each on standard output:
              q3's, exact, page and merge timed;
 13. explain_analyze_sf1 — EXPLAIN ANALYZE of q18 over the memory tables:
              the plan, a ``Query:`` line whose row count is the oracle's,
-             the ``Memory:`` line and one stats line per operator under
-             each ``Pipeline i:``, all printed;
+             the ``Memory:`` line, one stats line per operator under
+             each ``Pipeline i:`` and history's worst-misestimate line,
+             all printed;
 14. spill_sf1 — over the memory tables: (a) q18 with both spill tiers on,
              a cap of 3/4 of its unspilled peak from memory_sf1 and no
              host budget (every parked page goes to disk), held against
@@ -104,8 +105,9 @@ Phases, one JSON line each on standard output:
              port 0) over the memory runner, driven through the engine's
              ``Client``: q1, q3, q6 and q18 once each against the oracle
              (wall from submit to last page, kernel calls); q1 again (a
-             plan cache hit) and with the result cache on (a hit with no
-             kernel launch); a burst of eight q6-shape statements
+             cached plan: the plan cache's, or the shape's template once
+             history re-planned it) and with the result cache on (a hit
+             with no kernel launch); a burst of eight q6-shape statements
              (discount centre and quantity cut vary, the first is q6),
              one of eight q1-shape statements (q1 without its ORDER BY,
              a quantity cut varies, the first is q1's rows) and one of
@@ -116,7 +118,8 @@ Phases, one JSON line each on standard output:
              the engine's serial run of its text (DOUBLEs bit for bit)
              and the first of q6 and q1 to the oracle, and no more kernel
              calls than one serial run (one folded call per page over
-             8 x (cap + 1) segments, and the merge), each recorded; a
+             8 x (cap + 1) segments, and the merge), each recorded; then
+             the same burst again, recording nothing, with its wall; a
              denied user (PERMISSION_DENIED) and a burst member whose
              literal has another type (ANALYSIS_ERROR, its siblings
              equal to their serial runs);
@@ -126,23 +129,46 @@ Phases, one JSON line each on standard output:
              bursts' recorded folded calls replayed like q3's (ints,
              MIN and MAX exactly, float sums within SUM_RTOL), the
              largest page call and the merge timed;
-16. the wall of the whole script;
-17. the ``kernels`` line: per kernel its route, source, the TPU kernel it
+16. observability_sf1 — over the memory runner, the history store
+             emptied first: q18 and q3 twice each with history on (rows
+             against the oracle both times, the recorded history, the
+             worst Q-error, plan flips, whether the second run
+             re-planned); EXPLAIN ANALYZE VERBOSE of q1 and q18, twice
+             each (the ``Kernels:`` line, "0 new" on the repeat, the
+             profiler's ``segment_reduce_pallas`` calls equal to the
+             kernel's launches of the run, its CUDA-event device time
+             above 0 and within the run's wall, the programs' summed
+             device time beside the wall); ``system.runtime.kernels``,
+             ``plan_stats``, a slow-query record in
+             ``system.runtime.queries`` and the new families in GET
+             /v1/metrics, ``trino_device_memory_bytes`` read from the
+             card; q1's warm wall with profiling off and on, and with
+             history off and on, in turns; the runs planned from history
+             (q18's and q3's second), the first VERBOSE run of q1 and of
+             q18 and the slow q6 record their kernel calls;
+    observability_{q18_run2,q3_run2,verbose_q1_run1,verbose_q18_run1,
+    slow_q6}_columns — those calls replayed like q3's, exact, page and
+             merge timed;
+17. the wall of the whole script;
+18. the ``kernels`` line: per kernel its route, source, the TPU kernel it
    replaces, launches on the main path (the sum over every query run
-   above, with the count of each beside it), its error against the plain
+   above, with the count of each beside it, and the profiler's count of
+   each VERBOSE run's calls), its error against the plain
    version, its time, the plain version's, the library call's and its
    memory/compute bound at the main path's shape (q1's page call), and
    the same at the page and merge calls of every replay above
    (``q3_shapes``, ``q18_shapes``, ``memory_q3_shapes``,
-   ``memory_q18_shapes``, ``spill_q18_shapes``) and of the serving
+   ``memory_q18_shapes``, ``spill_q18_shapes``,
+   and ``observability_*_shapes``) and of the serving
    bursts' folded calls (``serving_shapes``);
-18. the last line: ``{"ok": true, "device": {...}}``.
+19. the last line: ``{"ok": true, "device": {...}}``.
 
 Any failed check raises; nothing is caught, so a failed phase ends the
 run with a non-zero exit code before the last line is printed.
 """
 
 import ast
+import contextlib
 import json
 import os
 import subprocess
@@ -169,6 +195,10 @@ SUM_RTOL = {"float32": 1e-5, "float64": 1e-12}
 
 
 def emit(obj) -> None:
+    """One JSON line; a phase's line also carries the seconds since the
+    script started (``at_s``), the script's timeline."""
+    if "phase" in obj:
+        obj = {**obj, "at_s": round(time.perf_counter() - T0, 1)}
     print(json.dumps(obj), flush=True)
 
 
@@ -557,7 +587,7 @@ def q1_phase(card, walls):
     emit({"phase": "q1_sf1", "rows_out": len(res.rows),
           "matches_oracle": True, "aggregated_pages": pages,
           "launches": launches, "cold_s": round(cold_s, 3),
-          "warm_s": round(warm_s, 4),
+          "warm_s": round(warm_s, 4), "hbo": _hbo_note(res),
           "lineitem_rows_aggregated": rows,
           "aggregated_rows_per_s": round(rows / warm_s),
           "peak_bytes": res.stats["memory"]["peak_bytes"],
@@ -578,6 +608,24 @@ def _recording(calls):
     return record
 
 
+@contextlib.contextmanager
+def _recorded(calls):
+    """Within the block, every ``segment_reduce_columns`` call of the
+    engine's aggregation paths (serial and burst) keeps a copy of its
+    inputs in ``calls``."""
+    from trino_tpu_torch.exec import batched
+    from trino_tpu_torch.ops import aggregation, hashtable, kernels
+
+    callers = (aggregation, hashtable, batched)
+    for module in callers:
+        module.segment_reduce_columns = _recording(calls)
+    try:
+        yield
+    finally:
+        for module in callers:
+            module.segment_reduce_columns = kernels.segment_reduce_columns
+
+
 def q3_phase(card, walls):
     """q3 at SF1; returns the launches of the warm run and the inputs of
     every kernel call of the cold run (the same calls: the data and the
@@ -586,7 +634,7 @@ def q3_phase(card, walls):
 
     from trino_tpu_torch import LocalQueryRunner
     from trino_tpu_torch.connectors.tpch import TpchConnector
-    from trino_tpu_torch.ops import aggregation, hashtable, kernels
+    from trino_tpu_torch.ops import kernels
     from trino_tpu_torch.resources.tpch_queries import TPCH_QUERIES
     from trino_tpu_torch.sql.analyzer import Session
 
@@ -595,13 +643,10 @@ def q3_phase(card, walls):
                               desired_splits=8, device="cuda")
     sql = TPCH_QUERIES[3]
     calls = []
-    aggregation.segment_reduce_columns = _recording(calls)
-    hashtable.segment_reduce_columns = _recording(calls)
     t0 = time.perf_counter()
-    runner.execute(sql)
+    with _recorded(calls):
+        cold = runner.execute(sql)
     cold_s = time.perf_counter() - t0
-    aggregation.segment_reduce_columns = kernels.segment_reduce_columns
-    hashtable.segment_reduce_columns = kernels.segment_reduce_columns
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.segment_reduce.launches = 0
@@ -614,11 +659,12 @@ def q3_phase(card, walls):
     _assert_same(res, _load_expected(3), "q3")
     pages = _aggregated_pages(res)
     if pages == 0 or launches["segment_reduce"] != pages \
-            or len(calls) != pages:
+            or len(calls) != _aggregated_pages(cold):
         raise AssertionError(
             f"q3: segment_reduce launched {launches['segment_reduce']} "
-            f"times (cold run: {len(calls)} calls) for {pages} aggregated "
-            "pages (want one per page)")
+            f"times (cold run: {len(calls)} calls for "
+            f"{_aggregated_pages(cold)}) for {pages} aggregated pages "
+            "(want one per page)")
     dfs = res.stats["dynamic_filters"]
     joins = [{"name": op["name"],
               "strategy": op.get("strategy", "sorted-index"),
@@ -633,7 +679,7 @@ def q3_phase(card, walls):
           "lineitem_rows_scanned": next(
               d["scanned_rows"] for d in dfs
               if d["filter"].startswith("l_orderkey")),
-          "dynamic_filters": dfs, "joins": joins,
+          "dynamic_filters": dfs, "joins": joins, "hbo": _hbo_note(res),
           "peak_bytes": res.stats["memory"]["peak_bytes"],
           # less the recorded inputs, which the warm run found resident
           "device_peak_bytes": torch.cuda.max_memory_allocated() - sum(
@@ -641,6 +687,20 @@ def q3_phase(card, walls):
               for t in [*cols, gid] + ([] if order is None else [order])),
           "card": card["nvidia_smi"]})
     return launches, calls
+
+
+def _hbo_note(res):
+    """How history served a warm run: the plan from the plan cache, the
+    shape's template (history earns one at once), or re-planned after
+    the cold run's material misestimate; and this run's recording
+    (nodes, material, worst Q-error)."""
+    hbo = (res.stats or {}).get("hbo") or {}
+    worst = hbo.get("worst") or {}
+    return {"plan_cache": (res.stats or {}).get("plan_cache"),
+            "plan_template": (res.stats or {}).get("plan_template"),
+            "recorded": hbo.get("recorded"),
+            "material": hbo.get("material"),
+            "worst_qerror": worst.get("qerror")}
 
 
 def _join_strategies(res):
@@ -667,19 +727,15 @@ def tpch_sf1_phase(card, qid: int, walls, calls=None):
     of every kernel call it makes. Returns the warm run's launches."""
     import torch
 
-    from trino_tpu_torch.ops import aggregation, hashtable, kernels
+    from trino_tpu_torch.ops import kernels
     from trino_tpu_torch.resources.tpch_queries import TPCH_QUERIES
 
     runner = _sf1_runner()
     sql = TPCH_QUERIES[qid]
-    if calls is not None:
-        aggregation.segment_reduce_columns = _recording(calls)
-        hashtable.segment_reduce_columns = _recording(calls)
     t0 = time.perf_counter()
-    runner.execute(sql)
+    with _recorded(calls) if calls is not None else contextlib.nullcontext():
+        cold = runner.execute(sql)
     cold_s = time.perf_counter() - t0
-    aggregation.segment_reduce_columns = kernels.segment_reduce_columns
-    hashtable.segment_reduce_columns = kernels.segment_reduce_columns
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.segment_reduce.launches = 0
@@ -692,7 +748,7 @@ def tpch_sf1_phase(card, qid: int, walls, calls=None):
     _assert_same(res, _load_expected(qid), f"q{qid}")
     pages = _aggregated_pages(res)
     if pages == 0 or launches != pages or \
-            (calls is not None and len(calls) != pages):
+            (calls is not None and len(calls) != _aggregated_pages(cold)):
         raise AssertionError(
             f"q{qid}: segment_reduce launched {launches} times (cold run: "
             f"{None if calls is None else len(calls)} calls) for {pages} "
@@ -701,7 +757,7 @@ def tpch_sf1_phase(card, qid: int, walls, calls=None):
           "matches_oracle": True, "aggregated_pages": pages,
           "launches": {"segment_reduce": launches},
           "cold_s": round(cold_s, 3), "warm_s": round(warm_s, 4),
-          "joins": _join_strategies(res),
+          "joins": _join_strategies(res), "hbo": _hbo_note(res),
           "peak_bytes": res.stats["memory"]["peak_bytes"],
           "device_peak_bytes": torch.cuda.max_memory_allocated() - sum(
               t.nbytes for cols, gid, _, _, order in (calls or [])
@@ -1025,7 +1081,7 @@ def memory_sf1_phase(card, tpch_warm):
     from trino_tpu_torch import LocalQueryRunner
     from trino_tpu_torch.connectors.memory import MemoryConnector
     from trino_tpu_torch.connectors.tpch import TpchConnector
-    from trino_tpu_torch.ops import aggregation, hashtable, kernels
+    from trino_tpu_torch.ops import kernels
     from trino_tpu_torch.resources.tpch_queries import TPCH_QUERIES
     from trino_tpu_torch.sql.analyzer import Session
 
@@ -1056,15 +1112,12 @@ def memory_sf1_phase(card, tpch_warm):
     launches, peaks, calls = {}, {}, {3: [], 18: []}
     for qid in MEMORY_QUERIES:
         sql = TPCH_QUERIES[qid]
-        if qid in calls:
-            aggregation.segment_reduce_columns = _recording(calls[qid])
-            hashtable.segment_reduce_columns = _recording(calls[qid])
         t0 = time.perf_counter()
-        runner.execute(sql)
+        with _recorded(calls[qid]) if qid in calls \
+                else contextlib.nullcontext():
+            cold = runner.execute(sql)
         torch.cuda.synchronize()
         cold_s = time.perf_counter() - t0
-        aggregation.segment_reduce_columns = kernels.segment_reduce_columns
-        hashtable.segment_reduce_columns = kernels.segment_reduce_columns
         kernels.segment_reduce.launches = 0
         t0 = time.perf_counter()
         res = runner.execute(sql)
@@ -1072,9 +1125,9 @@ def memory_sf1_phase(card, tpch_warm):
         warm_s = time.perf_counter() - t0
         launches[qid] = kernels.segment_reduce.launches
         _assert_same(res, _load_expected(qid), f"memory q{qid}")
-        pages = _aggregated_pages(res)
+        pages, cold_pages = _aggregated_pages(res), _aggregated_pages(cold)
         if pages == 0 or launches[qid] != pages or \
-                (qid in calls and len(calls[qid]) != pages):
+                (qid in calls and len(calls[qid]) != cold_pages):
             raise AssertionError(
                 f"memory q{qid}: segment_reduce launched {launches[qid]} "
                 f"times (cold run: {len(calls.get(qid, []))} calls) for "
@@ -1087,7 +1140,8 @@ def memory_sf1_phase(card, tpch_warm):
               "cold_s": round(cold_s, 3), "warm_s": round(warm_s, 4),
               "tpch_warm_s": tpch_warm.get(qid),
               "device_busy_share": _busy_share(lambda: runner.execute(sql)),
-              "joins": _join_strategies(res), "peak_bytes": peaks[qid],
+              "joins": _join_strategies(res), "hbo": _hbo_note(res),
+              "peak_bytes": peaks[qid],
               "card": card["nvidia_smi"]})
     return runner, launches, peaks, calls
 
@@ -1120,8 +1174,11 @@ def explain_analyze_phase(card, runner):
     if int(query.group(2)) != want_rows:
         raise AssertionError(f"EXPLAIN ANALYZE q18: {query.group(2)} rows, "
                              f"the oracle has {want_rows}")
-    pipelines, operators, pipeline = 0, [], None
+    pipelines, operators, pipeline, worst = 0, [], None, None
     for line in lines[blank + 3:]:
+        if line.startswith("Worst misestimate: ") and worst is None:
+            worst = line     # history's summary line, after the operators
+            continue
         m = re.fullmatch(r"Pipeline (\d+):", line)
         if m:
             pipeline = int(m.group(1))
@@ -1130,7 +1187,7 @@ def explain_analyze_phase(card, runner):
             pipelines += 1
             continue
         m = re.fullmatch(_OPERATOR_LINE, line)
-        if not m or pipeline is None:
+        if not m or pipeline is None or worst is not None:
             raise AssertionError(f"EXPLAIN ANALYZE q18: {line!r}")
         operators.append((pipeline, m.group(1), int(m.group(2))))
     heads = {p for p, name, _ in operators
@@ -1142,6 +1199,7 @@ def explain_analyze_phase(card, runner):
     emit({"phase": "explain_analyze_sf1", "wall_s": round(wall, 3),
           "query_ms": float(query.group(1)), "rows": want_rows,
           "pipelines": pipelines, "operators": len(operators),
+          "worst_misestimate": worst,
           "launches": {"segment_reduce": launches}, "lines": lines,
           "card": card["nvidia_smi"]})
     return launches
@@ -1161,22 +1219,19 @@ def _spill_run(runner, sql, props, calls=None):
     ``calls``, it keeps a copy of the inputs of every kernel call."""
     import torch
 
-    from trino_tpu_torch.ops import aggregation, hashtable, kernels
+    from trino_tpu_torch.ops import kernels
 
     saved = dict(runner.session.properties)
     runner.session.properties.update(props)
-    if calls is not None:
-        aggregation.segment_reduce_columns = _recording(calls)
-        hashtable.segment_reduce_columns = _recording(calls)
     try:
         kernels.segment_reduce.launches = 0
         t0 = time.perf_counter()
-        res = runner.execute(sql)
+        with _recorded(calls) if calls is not None \
+                else contextlib.nullcontext():
+            res = runner.execute(sql)
         torch.cuda.synchronize()
         return res, time.perf_counter() - t0, kernels.segment_reduce.launches
     finally:
-        aggregation.segment_reduce_columns = kernels.segment_reduce_columns
-        hashtable.segment_reduce_columns = kernels.segment_reduce_columns
         runner.session.properties.clear()
         runner.session.properties.update(saved)
 
@@ -1376,22 +1431,19 @@ def _serving_burst(card, srv, runner, name, sqls, oracle_qid, calls):
     kernel calls (recorded in ``calls``), every member equal to the
     engine's serial run of its text and, with ``oracle_qid``, the first
     member to that query's oracle rows; at most as many kernel calls as
-    one serial run."""
+    one serial run. Then the same burst again, recording nothing: the
+    same rows and calls. Returns the launches of both."""
     import torch
 
-    from trino_tpu_torch.exec import batched
     from trino_tpu_torch.ops import kernels
 
     before = _admission_batches(srv)
     disp0 = dict(runner.query_cache.templates.dispositions)
     launched0 = runner.query_cache.batched_launches
-    batched.segment_reduce_columns = _recording(calls)
     torch.cuda.synchronize()
     kernels.segment_reduce.launches = 0
-    try:
+    with _recorded(calls):
         out, wall = _burst(srv, sqls)
-    finally:
-        batched.segment_reduce_columns = kernels.segment_reduce_columns
     torch.cuda.synchronize()
     burst_launches = kernels.segment_reduce.launches
     bad = [o for o in out if isinstance(o, Exception)]
@@ -1438,9 +1490,24 @@ def _serving_burst(card, srv, runner, name, sqls, oracle_qid, calls):
         raise AssertionError(
             f"{name} burst: {burst_launches} kernel calls ({len(calls)} "
             f"recorded), one serial run makes {serial_launches}")
+    # the same burst again, recording nothing: the first burst's wall
+    # holds the copies of its recorded inputs and is the shape's first
+    # burst in the process
+    torch.cuda.synchronize()
+    kernels.segment_reduce.launches = 0
+    again, repeat_wall = _burst(srv, sqls)
+    torch.cuda.synchronize()
+    repeat_launches = kernels.segment_reduce.launches
+    if any(isinstance(o, Exception) for o in again) or \
+            [sorted(map(str, _http_result(o).rows)) for o in again] != \
+            [sorted(map(str, _http_result(o).rows)) for o in out] or \
+            repeat_launches != burst_launches:
+        raise AssertionError(f"{name} burst repeat: {again}, "
+                             f"{repeat_launches} kernel calls")
     emit({"phase": "serving_sf1", "step": f"{name}_burst",
           "members": len(sqls), "admission_batches": grew,
           "dispositions": disp, "burst_wall_s": round(wall, 4),
+          "repeat_burst_wall_s": round(repeat_wall, 4),
           "serial_walls_s": serial_walls,
           "serial_wall_sum_s": round(sum(serial_walls), 4),
           "launches": {"segment_reduce": burst_launches},
@@ -1450,16 +1517,18 @@ def _serving_burst(card, srv, runner, name, sqls, oracle_qid, calls):
           "matches_serial": True,
           "member0_matches_oracle": oracle_qid is not None,
           "card": card["nvidia_smi"]})
-    return burst_launches
+    return {f"{name}_burst": burst_launches,
+            f"{name}_burst_repeat": repeat_launches}
 
 
 def serving_phase(card, runner):
     """The statement server over the memory runner: ProtocolServer on
     127.0.0.1 (port 0) driven through the engine's Client. Single q1,
-    q3, q6 and q18 against the oracle; q1 again from the plan cache and
-    from the result cache (no kernel launch); a q6-shape and a q1-shape
-    burst of eight; a denied user and a failing member of a burst;
-    /v1/query/{id}, /v1/metrics and system.runtime.queries. Returns the
+    q3, q6 and q18 against the oracle; q1 again from a cached plan (the
+    plan cache's or its shape's template) and from the result cache (no
+    kernel launch); a q6-shape and a q1-shape burst of eight; a denied
+    user and a failing member of a burst; /v1/query/{id}, /v1/metrics
+    and system.runtime.queries. Returns the
     launches per step and the recorded folded calls per burst."""
     import json
     import urllib.request
@@ -1511,9 +1580,14 @@ def serving_phase(card, runner):
                   "card": card["nvidia_smi"]})
         q1 = TPCH_QUERIES[1]
         rows1 = client.execute(q1).rows
-        if served[q1].get("plan_cache") != "hit":
+        # a repeat runs a cached plan: the plan cache's, or — once a
+        # first run's material misestimate dropped that plan and history
+        # earned the shape a template — the template's
+        repeat = {k: served[q1].get(k)
+                  for k in ("plan_cache", "plan_template")}
+        if "hit" not in repeat.values():
             raise AssertionError(f"q1 repeat: {served[q1]}, want a plan "
-                                 "cache hit")
+                                 "cache or plan template hit")
         client.execute("set session result_cache_enabled = true")
         client.execute(q1)                    # new keyspace: stores
         torch.cuda.synchronize()
@@ -1528,21 +1602,21 @@ def serving_phase(card, runner):
             raise AssertionError(f"q1 result cache: {served[q1]}, "
                                  f"{hit_launches} launches")
         emit({"phase": "serving_sf1", "step": "repeat",
-              "plan_cache": "hit", "result_cache": "hit",
+              **repeat, "result_cache": "hit",
               "result_cache_wall_s": round(wall, 4),
               "result_cache_launches": hit_launches,
               "card": card["nvidia_smi"]})
-        launches["q6_burst"] = _serving_burst(
+        launches.update(_serving_burst(
             card, srv, runner, "q6",
             [SERVING_Q6_SQL % (c, c, q) for c, q in SERVING_Q6_ARGS], 6,
-            calls["q6"])
-        launches["q1_burst"] = _serving_burst(
+            calls["q6"]))
+        launches.update(_serving_burst(
             card, srv, runner, "q1",
-            [SERVING_Q1_SQL % k for k in SERVING_Q1_ARGS], 1, calls["q1"])
-        launches["q6d_burst"] = _serving_burst(
+            [SERVING_Q1_SQL % k for k in SERVING_Q1_ARGS], 1, calls["q1"]))
+        launches.update(_serving_burst(
             card, srv, runner, "q6d",
             [SERVING_Q6D_SQL % (c, c, q) for c, q in SERVING_Q6_ARGS], None,
-            calls["q6d"])
+            calls["q6d"]))
         # errors: a denied user, and a member of a burst whose literal
         # has another type (it leaves the batch and fails alone)
         runner.access_control = RuleBasedAccessControl([
@@ -1626,6 +1700,220 @@ def serving_phase(card, runner):
     return launches, calls
 
 
+#: the families a metrics scrape must carry: program first calls, the
+#: program profiler's, the card's memory and the history store's
+OBSERVABILITY_FAMILIES = ("trino_jit_traces_total",
+                          "trino_profiler_programs_total",
+                          "trino_profiler_seconds_total",
+                          "trino_device_memory_bytes",
+                          "trino_hbo_store_entries",
+                          "trino_hbo_lookups_total",
+                          "trino_hbo_records_total", "trino_hbo_qerror",
+                          "trino_hbo_plan_flips")
+
+
+def _profiled_kernel_calls(profiler) -> int:
+    return sum(e["calls"] for e in profiler.snapshot()
+               if e["name"] == "segment_reduce_pallas")
+
+
+def observability_phase(card, runner):
+    """History, the profiler, the runtime tables and the slow-query log
+    over the memory tables, the history store emptied first. (1) q18 and
+    q3 twice each: both runs equal the oracle and record history; the
+    worst Q-error, the plan flips and whether the second run re-planned.
+    (2) EXPLAIN ANALYZE VERBOSE of q1 and q18: the ``Kernels:`` line,
+    the profiler's ``segment_reduce_pallas`` calls equal to the kernel's
+    launches in the same run, its CUDA-event device time > 0 and within
+    the run's wall, the programs' summed device time beside the wall, and
+    a repeat run adding no program. (3) ``system.runtime.kernels`` and
+    ``plan_stats`` return rows; under ``slow_query_log_threshold`` a
+    query's record shows in ``system.runtime.queries.slow``; GET
+    /v1/metrics carries the new families, the device memory read from
+    the card. (4) q1's warm wall with profiling off and on, in turns,
+    and (5) with history off and on. The runs planned from history (the
+    second of q18 and of q3), the first VERBOSE run of q1 and of q18 and
+    the slow q6 keep a copy of the inputs of every kernel call they
+    make, one per launch. Returns the launches per run, the profiled
+    kernel calls per VERBOSE run and the recorded calls per run."""
+    import re
+    import urllib.request
+
+    import torch
+
+    from trino_tpu_torch.ops import kernels
+    from trino_tpu_torch.resources.tpch_queries import TPCH_QUERIES
+    from trino_tpu_torch.server.protocol import ProtocolServer
+    from trino_tpu_torch.telemetry import profiler, stats_store
+
+    store = stats_store.store()
+    store.clear()
+    launches, profiled, recorded = {}, {}, {}
+
+    def run(sql, key, record=False):
+        torch.cuda.synchronize()
+        kernels.segment_reduce.launches = 0
+        calls = None
+        if record:
+            calls = recorded[key] = []
+        t0 = time.perf_counter()
+        with _recorded(calls) if record else contextlib.nullcontext():
+            res = runner.execute(sql)
+        torch.cuda.synchronize()
+        launches[key] = kernels.segment_reduce.launches
+        if record and len(calls) != launches[key]:
+            raise AssertionError(f"{key}: {len(calls)} calls recorded for "
+                                 f"{launches[key]} launches")
+        return res, time.perf_counter() - t0
+
+    # (1) history
+    for qid in (18, 3):
+        sql = TPCH_QUERIES[qid]
+        before = runner.explain(sql)
+        flips0 = dict(store.plan_flips)
+        runs = []
+        for i in (1, 2):
+            res, wall = run(sql, f"observability_q{qid}_run{i}",
+                            record=i == 2)
+            _assert_same(res, _load_expected(qid), f"history q{qid} run {i}")
+            if not (res.stats or {}).get("hbo"):
+                raise AssertionError(f"history q{qid} run {i}: no hbo "
+                                     f"record in {sorted(res.stats)}")
+            runs.append((res, wall))
+        after = runner.explain(sql)
+        flips = {k: v - flips0.get(k, 0) for k, v in store.plan_flips.items()
+                 if v != flips0.get(k, 0)}
+        emit({"phase": "observability_sf1", "step": "history",
+              "query": f"q{qid}", "matches_oracle": True,
+              "runs": [{"wall_s": round(w, 4), **_hbo_note(r)}
+                       for r, w in runs],
+              "inputs_recorded_run": 2,
+              "second_run_replanned":
+                  runs[1][0].stats.get("plan_cache") != "hit",
+              "explain_changed": after != before,
+              "source_hbo_in_explain": "source=hbo" in after,
+              "plan_flips": flips, "store": store.counters(),
+              "launches": {"segment_reduce": [
+                  launches[f"observability_q{qid}_run{i}"]
+                  for i in (1, 2)]},
+              "card": card["nvidia_smi"]})
+    # (2) the profiler under EXPLAIN ANALYZE VERBOSE
+    for qid in (1, 18):
+        sql = "explain analyze verbose " + TPCH_QUERIES[qid]
+        lines_by_run = []
+        for i in (1, 2):
+            calls0 = _profiled_kernel_calls(profiler)
+            ms0 = sum(e["execute_ms"] for e in profiler.snapshot()
+                      if e["name"] == "segment_reduce_pallas")
+            outer0 = profiler.totals()["outer_execute_ms"]
+            res, wall = run(sql, f"observability_verbose_q{qid}_run{i}",
+                            record=i == 1)
+            lines = [r[0] for r in res.rows]
+            calls = _profiled_kernel_calls(profiler) - calls0
+            kernel_ms = sum(e["execute_ms"] for e in profiler.snapshot()
+                            if e["name"] == "segment_reduce_pallas") - ms0
+            outer_ms = profiler.totals()["outer_execute_ms"] - outer0
+            query = re.fullmatch(r"Query: ([0-9.]+)ms, (\d+) rows",
+                                 lines[lines.index("") + 1])
+            kernels_line = lines[-1]
+            n = launches[f"observability_verbose_q{qid}_run{i}"]
+            profiled[f"verbose_q{qid}_run{i}"] = calls
+            if not kernels_line.startswith("Kernels: ") or calls != n \
+                    or n == 0 or not 0 < kernel_ms <= wall * 1e3 \
+                    or int(query.group(2)) != len(_load_expected(qid)):
+                raise AssertionError(
+                    f"VERBOSE q{qid} run {i}: {kernels_line!r}, profiled "
+                    f"kernel calls {calls} vs {n} launches, kernel "
+                    f"{kernel_ms} ms in a {wall * 1e3:.1f} ms run")
+            if i == 2 and " 0 new, 0 compiles this run" not in kernels_line:
+                raise AssertionError(f"VERBOSE q{qid} repeat: "
+                                     f"{kernels_line!r}")
+            lines_by_run.append(lines)
+            emit({"phase": "observability_sf1", "step": "verbose",
+                  "query": f"q{qid}", "run": i,
+                  "inputs_recorded": i == 1,
+                  "wall_ms": round(wall * 1e3, 3),
+                  "query_line_ms": float(query.group(1)),
+                  "kernels_line": kernels_line,
+                  "segment_reduce_pallas": {"calls": calls, "launches": n,
+                                            "device_ms": round(kernel_ms, 4)},
+                  "programs_device_ms": round(outer_ms, 4),
+                  "card": card["nvidia_smi"]})
+        emit({"phase": "observability_sf1", "step": "verbose_lines",
+              "query": f"q{qid}", "lines": lines_by_run[0]})
+    # (3) the runtime tables, the slow-query log and the metrics scrape
+    kernel_rows = runner.execute("select name, calls, execute_ms from "
+                                 "system.runtime.kernels").rows
+    plan_rows = runner.execute("select statement, node, name, runs, rows "
+                               "from system.runtime.plan_stats").rows
+    runner.session.properties["slow_query_log_threshold"] = 1e-9
+    try:
+        run(TPCH_QUERIES[6], "observability_slow_q6", record=True)
+    finally:
+        runner.session.properties.pop("slow_query_log_threshold")
+    slow = [r for r in runner.execute(
+        "select query, slow from system.runtime.queries "
+        "where slow is not null").rows if r[0] == TPCH_QUERIES[6]]
+    srv = ProtocolServer(runner, host="127.0.0.1", port=0).start()
+    try:
+        text = urllib.request.urlopen(srv.uri + "/v1/metrics").read() \
+            .decode()
+    finally:
+        srv.stop()
+    missing = [f for f in OBSERVABILITY_FAMILIES
+               if f"# TYPE {f} " not in text]
+    limit = [float(line.split()[-1]) for line in text.splitlines()
+             if line.startswith("trino_device_memory_bytes{kind=\"limit\"")]
+    total = torch.cuda.mem_get_info()[1]
+    if not kernel_rows or not plan_rows or not slow or missing or \
+            limit != [float(total)] or \
+            "segment_reduce_pallas" not in {r[0] for r in kernel_rows}:
+        raise AssertionError(
+            f"tables: {len(kernel_rows)} kernels rows, {len(plan_rows)} "
+            f"plan_stats rows, {len(slow)} slow records, families missing "
+            f"{missing}, device memory limit {limit} vs {total}")
+    emit({"phase": "observability_sf1", "step": "tables",
+          "kernels_rows": len(kernel_rows),
+          "plan_stats_rows": len(plan_rows), "slow_record": slow[-1][1],
+          "metrics_families": list(OBSERVABILITY_FAMILIES),
+          "device_memory_limit_bytes": total,
+          "card": card["nvidia_smi"]})
+    # (4) the cost of profiling on q1's warm wall, off and on in turns
+    walls = {"off": [], "on": []}
+    for i, mode in enumerate(("off", "on", "on", "off")):
+        runner.session.properties["query_profiling_enabled"] = mode == "on"
+        try:
+            res, wall = run(TPCH_QUERIES[1],
+                            f"observability_cost_q1_{mode}{i}")
+        finally:
+            runner.session.properties.pop("query_profiling_enabled")
+        _assert_same(res, _load_expected(1), f"profiling {mode} q1")
+        walls[mode].append(round(wall, 4))
+    emit({"phase": "observability_sf1", "step": "profiling_cost",
+          "query": "q1", "walls_s": walls,
+          "mean_off_s": round(sum(walls["off"]) / 2, 4),
+          "mean_on_s": round(sum(walls["on"]) / 2, 4),
+          "card": card["nvidia_smi"]})
+    # (5) the cost of recording history on the same wall, off and on in
+    # turns (history is on in every run above)
+    walls = {"off": [], "on": []}
+    for i, mode in enumerate(("off", "on", "on", "off")):
+        runner.session.properties["hbo_enabled"] = mode == "on"
+        try:
+            res, wall = run(TPCH_QUERIES[1],
+                            f"observability_hbo_q1_{mode}{i}")
+        finally:
+            runner.session.properties.pop("hbo_enabled")
+        _assert_same(res, _load_expected(1), f"history {mode} q1")
+        walls[mode].append(round(wall, 4))
+    emit({"phase": "observability_sf1", "step": "history_cost",
+          "query": "q1", "walls_s": walls,
+          "mean_off_s": round(sum(walls["off"]) / 2, 4),
+          "mean_on_s": round(sum(walls["on"]) / 2, 4),
+          "card": card["nvidia_smi"]})
+    return launches, profiled, recorded
+
+
 def _bound_ms(cols, n: int, num_segments: int, with_order: bool):
     """(bound ms, bound_by, bytes) of one ``segment_reduce_columns`` call:
     gid (and order) read once per row, each column read once per row and
@@ -1640,14 +1928,14 @@ def _bound_ms(cols, n: int, num_segments: int, with_order: bool):
 
 def columns_replay_phase(phase: str, calls, page_by: str,
                          depth: int = 0):
-    """Every ``segment_reduce_columns`` call of a query's cold run, on the
+    """Every ``segment_reduce_columns`` call of a recorded run, on the
     inputs the run gave it, against its plain version (ints exactly);
     then one page call (the one with the most lanes, or with the most
     live rows: ``page_by`` "n" or "live") and the merge (the call with
-    the most groups) timed beside the plain version and ``index_add_``
-    over the unsorted gids. With ``depth``, the calls are a burst's
-    folded calls over ``depth`` lanes (each lane's last segment is its
-    dump segment), and the merge is the last call."""
+    the most groups, the last of equals) timed beside the plain version
+    and ``index_add_`` over the unsorted gids. With ``depth``, the calls
+    are a burst's folded calls over ``depth`` lanes (each lane's last
+    segment is its dump segment), and the merge is the last call."""
     import torch
 
     from trino_tpu_torch.ops import kernels
@@ -1673,7 +1961,7 @@ def columns_replay_phase(phase: str, calls, page_by: str,
           "order": all(c[4] is not None for c in calls),
           "shapes": shapes, "max_abs_err": max(errs)})
     merge = len(calls) - 1 if depth else \
-        max(range(len(calls)), key=lambda i: shapes[i]["groups"])
+        max(range(len(calls)), key=lambda i: (shapes[i]["groups"], i))
     largest = max((i for i in range(len(calls)) if i != merge),
                   key=lambda i: shapes[i][page_by])
     timed = {}
@@ -1756,7 +2044,16 @@ def main() -> int:
     del spill_calls
     serving_launches, serving_calls = serving_phase(card, runner)
     launches.update({f"serving_{k}": n for k, n in serving_launches.items()})
+    observability_launches, profiled_calls, observability_calls = \
+        observability_phase(card, runner)
+    launches.update(observability_launches)
     del runner
+    for key, page_by in (("q18_run2", "live"), ("q3_run2", "n"),
+                         ("verbose_q1_run1", "live"),
+                         ("verbose_q18_run1", "live"), ("slow_q6", "live")):
+        replayed[f"observability_{key}"] = columns_replay_phase(
+            f"observability_{key}_columns",
+            observability_calls.pop(f"observability_{key}"), page_by)
     serving_shapes = {
         f"{name}_burst": columns_replay_phase(
             f"serving_{name}_columns", serving_calls.pop(name), "live",
@@ -1772,6 +2069,7 @@ def main() -> int:
         "replaces": "trino_tpu/ops/pallas_kernels.py:100",
         "launches": sum(launches.values()),
         "launches_by_query": launches,
+        "profiled_calls_by_query": profiled_calls,
         "max_abs_err": main_shape["max_abs_err"],
         "ms": main_shape["kernel_ms"],
         "plain_ms": main_shape["plain_ms"],

@@ -2,9 +2,10 @@
 engine.
 
 The cases of tests/test_batched_execution.py that have a counterpart in
-the port. Each sends the same statements through both engines (the JAX
-runner with ``hbo_enabled=false``, as the port plans without history)
-and compares the rows (integers and decimals exactly, DOUBLE within a
+the port. Each sends the same statements through both engines (both
+with ``hbo_enabled=false``, so the counters compare runs planned without
+history; tests/test_torch_hbo.py holds a burst's history and depth
+against the JAX engine's) and compares the rows (integers and decimals exactly, DOUBLE within a
 relative 1e-12), the error codes, the cache and template counters and
 the dispositions. A burst must also equal the port's own serial runs of
 the same texts, row for row and in order.
@@ -16,8 +17,8 @@ plain version's calls: one folded call per aggregated page and one for
 the merge, whatever the burst's depth.
 
 Left out (ROADMAP queue 1): the hot-lane output-buffer cases (the
-exchange output buffer comes with distribution), HBO actuals of a burst,
-and the template seed's worker RPC and process-runner transport.
+exchange output buffer comes with distribution) and the template seed's
+worker RPC and process-runner transport.
 """
 
 import threading

@@ -489,3 +489,52 @@ def test_burst_on_the_card_equals_its_serial_runs(dev):
     serial_calls = (kernels.segment_reduce.launches - before) // 8
     assert [o.rows for o in out] == serial
     assert 0 < burst_calls <= serial_calls
+
+
+def test_profiled_kernel_calls_equal_launches(dev):
+    """Under EXPLAIN ANALYZE VERBOSE on the card the profiler's
+    ``segment_reduce_pallas`` entries count exactly the kernel's launches
+    of the run, their CUDA-event device time is positive and within the
+    run's wall, and a repeat run adds no program."""
+    import re
+
+    from trino_tpu_torch.telemetry import profiler
+
+    profiler.reset()
+    try:
+        runner = LocalQueryRunner({"tpch": TpchConnector(page_rows=4096)},
+                                  Session(catalog="tpch", schema="tiny"),
+                                  device=dev)
+        sql = "explain analyze verbose " + TPCH_QUERIES[1]
+        before = kernels.segment_reduce.launches
+        text = "\n".join(r[0] for r in runner.execute(sql).rows)
+        launched = kernels.segment_reduce.launches - before
+        entries = [e for e in profiler.snapshot()
+                   if e["name"] == "segment_reduce_pallas"]
+        assert launched > 0
+        assert sum(e["calls"] for e in entries) == launched
+        device_ms = sum(e["execute_ms"] for e in entries)
+        wall_ms = float(re.search(r"Query: ([0-9.]+)ms", text).group(1))
+        assert 0 < device_ms <= wall_ms
+        again = runner.execute(sql).rows[-1][0]
+        assert "0 new, 0 compiles this run" in again, again
+    finally:
+        profiler.reset()
+
+
+def test_profiling_off_makes_no_event(dev, monkeypatch):
+    """With profiling off a query on the card creates no CUDA event."""
+    made = []
+    real = torch.cuda.Event
+
+    def counted(*a, **k):
+        made.append(1)
+        return real(*a, **k)
+
+    monkeypatch.setattr(torch.cuda, "Event", counted)
+    runner = LocalQueryRunner({"tpch": TpchConnector(page_rows=4096)},
+                              Session(catalog="tpch", schema="tiny"),
+                              device=dev)
+    runner.execute(TPCH_QUERIES[1])
+    runner.execute("explain analyze " + TPCH_QUERIES[1])
+    assert made == []

@@ -6,7 +6,8 @@ cold ones through the spill tiers; cold probe rows park beside their
 partition and join in per-partition passes once the probe input is done,
 repartitioning a partition that still does not fit. These are the four
 hybrid cases of tests/test_memory_governance.py that need no
-history-based statistics (the port plans with hbo=None), plus inner,
+history-based statistics (tests/test_torch_hbo.py holds the second run's
+fan-out from history against the JAX engine's), plus inner,
 LEFT, semi and anti joins on integer and string keys squeezed the same
 way, each returning the JAX engine's rows.
 """

@@ -2,7 +2,7 @@
 engine against the JAX engine.
 
 The cases of tests/test_query_cache.py, each sent through both engines
-(the JAX runner with ``hbo_enabled=false``) over their own memory
+(both with ``hbo_enabled=false``) over their own memory
 catalogs: the same rows, the same served-by stats (plan cache, result
 cache, template), the same error codes and the same cache counters. The
 invalidation matrix is the heart: an identical re-submission must hit,
@@ -183,11 +183,17 @@ def test_system_catalog_uncacheable():
 
 
 def test_system_runtime_tables_not_ported_raise():
+    """Checks that both tables WORK with the JAX engine's columns; the
+    name, from when they raised, is kept so the test's id stays the same.
+
+    Both tables are ported now: a scan of either returns the JAX
+    engine's columns instead of raising NOT_SUPPORTED (their rows are
+    held against the JAX engine's in tests/test_torch_telemetry.py)."""
     p = kv_pair()
     for table in ("kernels", "plan_stats"):
-        with pytest.raises(Exception) as exc:
-            p.t.execute(f"select * from system.runtime.{table}")
-        assert getattr(exc.value, "code", None) == "NOT_SUPPORTED"
+        sql = f"select * from system.runtime.{table}"
+        assert p.t.execute(sql).column_names == \
+            p.j.execute(sql).column_names
 
 
 # -- result cache -----------------------------------------------------------
@@ -337,17 +343,25 @@ def test_cache_counters_via_metrics_and_sql():
 
 
 def test_runner_families_equal_jax():
-    """The runner's families are the JAX engine's, less the JAX-only
-    process families (jit traces, exchange and rebalance counters,
-    profiler, device memory, history store)."""
+    """The runner's families are the JAX engine's, less the exchange and
+    rebalance counters (they come with distribution). Both engines'
+    process-wide history stores and profilers start empty, so the
+    families that read them are absent from both (on the CPU neither
+    engine reports device memory)."""
+    from trino_tpu.telemetry import profiler as j_profiler
+    from trino_tpu.telemetry import stats_store as j_stats_store
+    from trino_tpu_torch.telemetry import profiler, stats_store
+
+    for store in (stats_store.store(), j_stats_store.store()):
+        store.clear()
+    profiler.reset()
+    j_profiler.reset()
     p = kv_pair()
     p.execute("select sum(v) s from t")
-    jax_only = {"trino_jit_traces_total", "trino_exchange_splits_total",
+    jax_only = {"trino_exchange_splits_total",
                 "trino_writer_rebalances_total"}
     want = {f["name"] for f in p.j.metrics_families()} - jax_only
-    want = {n for n in want if not n.startswith(("trino_hbo_",
-                                                 "trino_profiler_",
-                                                 "trino_device_memory"))}
+    assert "trino_jit_traces_total" in want
     assert {f["name"] for f in p.t.metrics_families()} == want
 
 

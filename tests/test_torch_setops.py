@@ -103,7 +103,10 @@ def test_scalar_subquery_with_two_rows_raises_in_both(runners, sql):
     "explain analyze select count(*) from nation",
 ])
 def test_writers_and_explain_analyze_raise_not_supported(runners, sql):
-    """Both raised NOT_SUPPORTED in the torch engine while writers and
+    """Checks that both engines answer ALIKE; the name, from when the
+    port raised, is kept so the test's ids stay the same.
+
+    Both raised NOT_SUPPORTED in the torch engine while writers and
     EXPLAIN ANALYZE were unported; now the two engines answer alike. A
     CTAS into the read-only tpch catalog raises the connector's
     NOT_SUPPORTED in both; EXPLAIN ANALYZE renders the same plan and the
@@ -120,9 +123,12 @@ def test_writers_and_explain_analyze_raise_not_supported(runners, sql):
         assert je.value.code == pe.value.code == "NOT_SUPPORTED"
         assert str(pe.value) == str(je.value)
         return
-    jplan, jrows, _, jops = explain_analyze_parts(
-        [r for r in jr.execute(sql).rows
-         if not r[0].startswith("Worst misestimate")])
-    pplan, prows, _, pops = explain_analyze_parts(pr.execute(sql).rows)
+    # both engines record history by default and end with their worst
+    # misestimate line
+    jres, pres = jr.execute(sql).rows, pr.execute(sql).rows
+    assert jres[-1][0].startswith("Worst misestimate")
+    assert pres[-1][0].startswith("Worst misestimate")
+    jplan, jrows, _, jops = explain_analyze_parts(jres[:-1])
+    pplan, prows, _, pops = explain_analyze_parts(pres[:-1])
     assert (pplan, prows, pops) == (jplan, jrows, jops)
     assert prows == 1

@@ -48,6 +48,8 @@ from dataclasses import fields, is_dataclass
 from typing import Dict, List, Optional, Tuple
 
 from .sql import ast
+# the template seed store's key, re-exported beside it
+from .telemetry.stats_store import statement_fingerprint  # noqa: F401
 
 #: functions whose output varies between identical executions — results
 #: must never be served from cache (plans are still fine: the call
@@ -641,16 +643,6 @@ _TEMPLATE_SEEDS = TemplateSeedStore()
 
 def template_seeds() -> TemplateSeedStore:
     return _TEMPLATE_SEEDS
-
-
-def statement_fingerprint(shape) -> str:
-    """Stable digest of a normalized statement shape (the frozen AST
-    ``normalize_statement`` returns): the seed store's key. The JAX
-    engine's ``telemetry/stats_store.py`` helper, copied — the rest of
-    the history store is not ported."""
-    import hashlib
-
-    return hashlib.sha1(repr(shape).encode()).hexdigest()[:16]
 
 
 class QueryCache:

@@ -13,13 +13,16 @@ materializes a snapshot page per scan:
   (process runner) — empty for single-process runners;
 - ``system.runtime.metrics``: the flattened metrics registry, one row
   per (name, labels) sample — the SQL view of ``GET /v1/metrics``;
-- ``system.runtime.kernels`` and ``system.runtime.plan_stats`` read the
-  compiled-program profiler and the history-based statistics store,
-  which are not ported to the torch engine yet: a scan of either raises
-  NOT_SUPPORTED.
+- ``system.runtime.kernels``: the program profiler registry
+  (telemetry.profiler) — one row per program and signature with calls,
+  compile wall (the kernel library's build) and ``execute_ms``, the
+  calls' CUDA-event spans (``telemetry/profiler.py``); empty until
+  profiling runs (``query_profiling_enabled`` or EXPLAIN ANALYZE
+  VERBOSE).
+- ``system.runtime.plan_stats``: the history-based statistics store
+  (telemetry.stats_store) — one row per (statement, plan node).
 
-The JAX engine's ``trino_tpu/connectors/system.py``, copied, without
-those two readers.
+The JAX engine's ``trino_tpu/connectors/system.py``, copied.
 """
 
 from __future__ import annotations
@@ -141,13 +144,6 @@ class SystemConnector(Connector):
     # -- row builders ------------------------------------------------------
 
     def _rows(self, table: str) -> List[tuple]:
-        if table in ("kernels", "plan_stats"):
-            raise T.TrinoError(
-                f"system.runtime.{table} needs the "
-                + ("compiled-program profiler" if table == "kernels"
-                   else "history-based statistics store")
-                + ", which is not ported to the torch engine yet",
-                "NOT_SUPPORTED")
         try:
             if table == "queries":
                 return self._query_rows()
@@ -155,6 +151,10 @@ class SystemConnector(Connector):
                 return self._task_rows()
             if table == "nodes":
                 return self._node_rows()
+            if table == "kernels":
+                return self._kernel_rows()
+            if table == "plan_stats":
+                return self._plan_stats_rows()
             return self._metric_rows()
         except Exception:
             # introspection must never fail a query over it; a torn
@@ -202,6 +202,31 @@ class SystemConnector(Connector):
                 f"misest={worst['name']} est {worst['est_rows']} "
                 f"actual {worst['actual_rows']} q={worst['qerror']}")
         return "; ".join(parts)
+
+    @staticmethod
+    def _plan_stats_rows() -> List[tuple]:
+        from ..telemetry import stats_store
+
+        rows = []
+        for e in stats_store.store().snapshot():
+            rows.append((e["statement"], e["fp"], e["name"],
+                         e["runs"], round(e["rows"], 2),
+                         round(e["bytes"], 2), round(e["wall_ms"], 3),
+                         round(e["flops"], 2),
+                         round(e["peak_bytes"], 2)))
+        return rows
+
+    def _kernel_rows(self) -> List[tuple]:
+        from ..telemetry import profiler
+
+        rows = []
+        for e in profiler.snapshot():
+            rows.append((e["name"], e["key"], e["compiles"], e["calls"],
+                         e["trace_ms"], e["compile_ms"],
+                         e["execute_ms"], e["flops"],
+                         e["bytes_accessed"], e["output_bytes"],
+                         e["temp_bytes"], e["code_bytes"]))
+        return rows
 
     def _task_rows(self) -> List[tuple]:
         fn = getattr(self.source, "runtime_tasks", None)

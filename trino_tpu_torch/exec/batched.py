@@ -68,12 +68,13 @@ from ..expr.compiler import param_raw
 from ..ops.aggregation import (HashAggregationOperator, _final_project,
                                _init_states, _merge_states, _state_plan)
 from ..ops.hashtable import hash_insert, hashable_key_types
-from ..ops.join import LookupJoinOperator, _key_u64, _probe_counts
+from ..ops.join import LookupJoinOperator, _key_u64, _probe_counts_impl
 from ..ops.kernel_sizing import KERNEL_SIZING
 from ..ops.kernels import segment_reduce_columns, segment_tile_rows
 from ..ops.operator import (FilterProjectOperator, OutputCollectorOperator,
                             TableScanOperator)
 from ..ops.sortkeys import lexsort_indices
+from ..telemetry.profiler import instrument
 
 
 class BatchIneligible(Exception):
@@ -95,11 +96,18 @@ class BatchResult:
     dispositions: what actually ran beyond filter/project stages
                   (``agg_stage_vmapped`` / ``join_stage_vmapped``, the
                   JAX engine's tags) — feeds the taxonomy counters
+    stage_rows:   per HBO-fingerprinted stage: exact per-lane output
+                  row counts (rows key is a ``(D,)`` host array over the
+                  PADDED batch; the runner records real, non-spilled
+                  lanes only)
+    scan_rows:    rows the shared scan produced (lane-invariant)
     """
 
     pages: List[List[Page]]
     spilled: Set[int]
     dispositions: List[str]
+    stage_rows: List[dict]
+    scan_rows: int
 
 
 def vmappable_stages(plan) -> Tuple[List, TableScanOperator, List[Tuple],
@@ -298,6 +306,35 @@ def _fold_group_reduce(key_ops: Sequence, key_raws: Sequence,
     return out_keys, out_key_nulls, reduced, out_valid, overflow
 
 
+# the burst's programs, profiled under the JAX engine's lane-program
+# names (``trino_tpu/exec/batched.py``): a page's partials, the merge,
+# the final projection, and the join stage's probe and expansion
+_fold_partial = instrument("batched_agg_partial", _fold_group_reduce,
+                           static_argnames=("kinds", "hash_path"))
+_fold_merge = instrument("batched_agg_merge", _fold_group_reduce,
+                         static_argnames=("kinds", "hash_path"))
+
+
+def _final_lanes(aggregates: Tuple, cols, nulls, valid, nkeys: int):
+    """The aggregation's final projection over ``(D, cap)`` merged
+    states: each aggregate's output column and null mask after the
+    keys (``HashAggregationOperator._finalize``'s walk)."""
+    out_cols = list(cols[:nkeys])
+    out_nulls = list(nulls[:nkeys])
+    idx = nkeys
+    for a in aggregates:
+        m = len(_state_plan(a))
+        raw, null = _final_project(a, cols[idx:idx + m])
+        idx += m
+        out_cols.append(raw.to(storage_dtype(a.output_type)))
+        out_nulls.append(null | ~valid)
+    return out_cols, out_nulls
+
+
+_final_lanes = instrument("batched_agg_finalize", _final_lanes,
+                          static_argnames=("nkeys",))
+
+
 @dataclass
 class _BatchPage:
     """One page mid-pipeline: columns either shared (param-free prefix,
@@ -382,9 +419,10 @@ class _AggAccumulator:
                 state_cols.extend(_init_states(a, page.cols, page.nulls,
                                                page.valid, page.dictionaries,
                                                op._rank_cache))
-        keys, key_nulls, reduced, out_valid, overflow = _fold_group_reduce(
+        fold = _fold_merge if intermediate else _fold_partial
+        keys, key_nulls, reduced, out_valid, overflow = fold(
             key_ops, key_raws, [page.nulls[c] for c in key_channels],
-            state_cols, page.valid, op._kinds, self.hash_path)
+            state_cols, page.valid, tuple(op._kinds), self.hash_path)
         self.overflow = overflow if self.overflow is None \
             else self.overflow | overflow
         reduced = op._states_rank_to_code(list(reduced))
@@ -471,15 +509,8 @@ class _AggAccumulator:
             # input rows (lane 0 then holds empty-input states)
             valid = valid | (torch.arange(valid.shape[-1],
                                           device=valid.device) == 0)
-        out_cols = list(cols[:nkeys])
-        out_nulls = list(nulls[:nkeys])
-        idx = nkeys
-        for a in op.aggregates:
-            m = len(_state_plan(a))
-            raw, null = _final_project(a, cols[idx:idx + m])
-            idx += m
-            out_cols.append(raw.to(storage_dtype(a.output_type)))
-            out_nulls.append(null | ~valid)
+        out_cols, out_nulls = _final_lanes(tuple(op.aggregates), cols,
+                                           nulls, valid, nkeys)
         agg_dicts = []
         k = 0
         for a in op.aggregates:
@@ -587,6 +618,32 @@ def _finalize_join(pcols, pnulls, pvalid, bcols, bnulls, probe_idx,
     return out_cols, out_nulls, keep
 
 
+def _join_semi_lanes(lo, count, pkey_cols, bkeys, build_usable, valid,
+                     lane_cap: int, anti: bool):
+    """A semi (anti) join stage's new ``(D, n)`` valid mask."""
+    probe_idx, _build_idx, keep = _expand_verified(
+        lo, count, pkey_cols, bkeys, build_usable, lane_cap)
+    matched = _segment_any(keep, probe_idx, valid.shape[-1])
+    return valid & (~matched if anti else matched)
+
+
+def _join_expand_lanes(lo, count, pkey_cols, bkeys, build_usable, pcols,
+                       pnulls, pvalid, bcols, bnulls, lane_cap: int,
+                       left: bool):
+    """An inner (left) join stage's ``(D, lane_cap)`` output lanes."""
+    probe_idx, build_idx, keep = _expand_verified(
+        lo, count, pkey_cols, bkeys, build_usable, lane_cap)
+    return _finalize_join(pcols, pnulls, pvalid, bcols, bnulls, probe_idx,
+                          build_idx, keep, left=left)
+
+
+_batched_probe = instrument("batched_join_probe", _probe_counts_impl)
+_join_semi_lanes = instrument("batched_join_semi", _join_semi_lanes,
+                              static_argnames=("lane_cap", "anti"))
+_join_expand_lanes = instrument("batched_join_expand", _join_expand_lanes,
+                                static_argnames=("lane_cap", "left"))
+
+
 def _apply_join(op: LookupJoinOperator, page: _BatchPage,
                 spill: np.ndarray) -> _BatchPage:
     """One join stage over a batched probe page against the shared
@@ -606,7 +663,8 @@ def _apply_join(op: LookupJoinOperator, page: _BatchPage,
     pkey, panynull = _key_u64(pkey_cols, [page.nulls[c] for c in kc],
                               key_types, b.key_mode)
     pusable = page.valid & ~panynull
-    lo, count = _probe_counts(b.key_sorted, b.usable_sorted, pkey, pusable)
+    lo, count = _batched_probe(b.key_sorted, b.usable_sorted, pkey,
+                               pusable)
     totals = np.where(spill, 0, count.sum(-1).cpu().numpy())
     need = int(totals.max()) if totals.size else 16
     cfg = (tuple(kc), tuple(repr(t) for t in key_types), b.key_mode)
@@ -616,17 +674,16 @@ def _apply_join(op: LookupJoinOperator, page: _BatchPage,
         lane_cap >>= 1  # budget checked POST-padding, like every path
     spill |= totals > lane_cap
     bkeys = [b.cols[c] for c in b.key_channels]
-    probe_idx, build_idx, keep = _expand_verified(
-        lo, count, pkey_cols, bkeys, b.usable_sorted, lane_cap)
     if op.join_type in ("semi", "anti"):
-        matched = _segment_any(keep, probe_idx, page.valid.shape[-1])
-        valid = page.valid & (~matched if op.join_type == "anti"
-                              else matched)
+        valid = _join_semi_lanes(lo, count, pkey_cols, bkeys,
+                                 b.usable_sorted, page.valid, lane_cap,
+                                 op.join_type == "anti")
         return _BatchPage(page.types, page.cols, page.nulls, valid,
                           page.dicts, True)
-    out_cols, out_nulls, out_valid = _finalize_join(
-        page.cols, page.nulls, page.valid, b.cols, b.nulls, probe_idx,
-        build_idx, keep, left=op.join_type == "left")
+    out_cols, out_nulls, out_valid = _join_expand_lanes(
+        lo, count, pkey_cols, bkeys, b.usable_sorted, page.cols,
+        page.nulls, page.valid, b.cols, b.nulls, lane_cap,
+        op.join_type == "left")
     return _BatchPage(list(op.output_types), tuple(out_cols),
                       tuple(out_nulls), out_valid,
                       list(page.dicts) + list(b.dictionaries), True)
@@ -645,7 +702,8 @@ def execute_batched(plan, param_types, bindings: Sequence[Tuple],
     pages demux positionally for the first ``num_members`` lanes only.
     Returns host pages per member, equal to running each member through
     the serial path (padding lanes compute and are discarded), plus the
-    spilled-lane set and the stage dispositions."""
+    spilled-lane set, the stage dispositions, and the per-lane row
+    actuals of every HBO-fingerprinted stage."""
     aux, scan, stages, dispositions = vmappable_stages(plan)
     fps = [op for kind, op in stages if kind == "fp"]
     check_params_consumed(fps, len(param_types))
@@ -666,7 +724,18 @@ def execute_batched(plan, param_types, bindings: Sequence[Tuple],
     agg_accs: Dict[int, _AggAccumulator] = {
         k: _AggAccumulator(op, depth)
         for k, (kind, op) in enumerate(stages) if kind == "agg"}
+    rows_acc: Dict[int, torch.Tensor] = {}
+    scan_rows_acc = None
     final: List[_BatchPage] = []
+
+    def note_rows(k: int, op, valid):
+        # exact per-lane output rows of a fingerprinted stage, summed on
+        # the device and read once at the end
+        if getattr(op, "_hbo_fp", None) is None:
+            return
+        r = valid.sum(-1) if valid.dim() == 2 \
+            else valid.sum().expand(depth)
+        rows_acc[k] = r if k not in rows_acc else rows_acc[k] + r
 
     def apply_fp(k: int, op, page: _BatchPage) -> _BatchPage:
         proc = op.processor
@@ -697,6 +766,7 @@ def execute_batched(plan, param_types, bindings: Sequence[Tuple],
             else:
                 agg_accs[k].feed(page)
                 return
+            note_rows(k, op, page.valid)
         if not page.batched:
             # cannot happen after check_params_consumed with
             # param_types non-empty; guard for the zero-literal case
@@ -709,6 +779,9 @@ def execute_batched(plan, param_types, bindings: Sequence[Tuple],
             if scan.is_finished():
                 break
             continue
+        cnt = dpage.valid.sum()
+        scan_rows_acc = cnt if scan_rows_acc is None \
+            else scan_rows_acc + cnt
         run_from(0, _BatchPage(list(dpage.types), tuple(dpage.cols),
                                tuple(dpage.nulls), dpage.valid,
                                list(dpage.dictionaries), False))
@@ -720,6 +793,7 @@ def execute_batched(plan, param_types, bindings: Sequence[Tuple],
         page = acc.finalize()
         if acc.overflow is not None:
             spill |= acc.overflow.cpu().numpy()
+        note_rows(k, stages[k][1], page.valid)
         run_from(k + 1, page)
 
     spilled = {m for m in range(num_members) if spill[m]}
@@ -737,4 +811,16 @@ def execute_batched(plan, param_types, bindings: Sequence[Tuple],
                               list(page.dicts)).to_page()
             if host.num_rows:
                 out_pages[m].append(host)
-    return BatchResult(out_pages, spilled, dispositions)
+    scan_rows = int(scan_rows_acc) if scan_rows_acc is not None else 0
+    stage_rows = [
+        {"fp": getattr(stages[k][1], "_hbo_fp", None),
+         "name": type(stages[k][1]).__name__,
+         "rows": rows_acc[k].cpu().numpy()}
+        for k in sorted(rows_acc)]
+    if getattr(scan, "_hbo_fp", None) is not None:
+        # the shared scan is lane-invariant: every lane observed it
+        stage_rows.insert(0, {"fp": scan._hbo_fp,
+                              "name": type(scan).__name__,
+                              "rows": np.full(depth, scan_rows)})
+    return BatchResult(out_pages, spilled, dispositions, stage_rows,
+                       scan_rows)

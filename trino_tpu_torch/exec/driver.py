@@ -4,39 +4,75 @@ Reference analog: ``operator/Driver.java:380-486`` (processInternal) — walk
 adjacent operator pairs, move one page per iteration, finish-propagate.
 Synchronous. With ``collect_stats`` each operator call is timed on the
 host's wall clock (device work is asynchronous, so an operator's wall is
-its enqueue time plus whatever it waited for on the device).
+its enqueue time plus whatever it waited for on the device), its
+programs' first calls are counted (``jit_stats``), and, while the
+program profiler is on, its programs' operations, bytes, compile wall
+and CUDA-event spans ("device ms", see ``telemetry/profiler.py``) are
+attributed to it — the spans read at the end of each call, so under
+profiling an operator's wall includes its device work.
 """
 
 from __future__ import annotations
 
 import time
-from dataclasses import dataclass
-from typing import List, Optional, Sequence
+from dataclasses import dataclass, field
+from typing import List, Optional, Sequence, Set
 
+import torch
+
+from .. import jit_stats
 from ..ops.operator import Operator
+from ..telemetry import profiler
 
 
 @dataclass
 class OperatorStats:
     """Per-operator execution stats (reference:
-    operator/OperatorStats.java — wall nanos, rows/pages out)."""
+    operator/OperatorStats.java — wall nanos, rows/pages out).
+    ``compile_count`` is the number of program first calls at a new
+    signature attributed to this operator's calls (``jit_stats``): after
+    warmup it must stay flat for same-shape pages."""
 
     name: str
     output_rows: int = 0
     output_pages: int = 0
     wall_ns: int = 0
+    compile_count: int = 0
+    #: program profiler attribution (thread deltas): operations and
+    #: bytes of this operator's programs, the compile wall it paid, its
+    #: device ms (the programs' CUDA-event spans, which hold the device's
+    #: idle time when the host is behind) and the names of the programs
+    #: it ran — all zero/empty
+    #: unless the profiler was on (EXPLAIN ANALYZE VERBOSE,
+    #: ``query_profiling_enabled``)
+    flops: float = 0.0
+    device_bytes: float = 0.0
+    compile_ms: float = 0.0
+    device_ms: float = 0.0
+    programs: Set[str] = field(default_factory=set)
     #: operator-reported metrics, pulled from ``op.metrics()`` once the
     #: driver finishes
     metrics: Optional[dict] = None
+    #: canonical plan-node fingerprint this operator realizes (set by
+    #: the local planner when history-based statistics are recording;
+    #: telemetry.stats_store keys actuals by it) — None outside HBO
+    node_fp: Optional[str] = None
 
     def line(self) -> str:
-        """The operator's EXPLAIN ANALYZE line: the JAX engine's format
-        without its jit compile count and compiled-program cost (this
-        engine runs eager torch ops), so names, rows and pages compare
-        line by line."""
+        """The operator's EXPLAIN ANALYZE line, in the JAX engine's
+        format; under profiling the cost bracket adds the device ms and
+        the programs the operator ran."""
         ms = self.wall_ns / 1e6
         base = (f"{self.name}: {self.output_rows} rows, "
-                f"{self.output_pages} pages, {ms:.1f}ms")
+                f"{self.output_pages} pages, {ms:.1f}ms, "
+                f"{self.compile_count} compiles")
+        if self.flops or self.device_bytes or self.compile_ms \
+                or self.programs:
+            base += (f" [cost {self.flops:.3g} flops, "
+                     f"{self.device_bytes:.3g} bytes, "
+                     f"compile {self.compile_ms:.1f}ms, "
+                     f"device {self.device_ms:.3f}ms, programs "
+                     + " ".join(sorted(self.programs)) + "]")
         m = self.metrics or {}
         if m.get("strategy"):
             # kernel-strategy operators report what ran (including a
@@ -58,17 +94,49 @@ class Driver:
         self.operators: List[Operator] = list(operators)
         self.collect_stats = collect_stats
         self.stats: List[OperatorStats] = [
-            OperatorStats(type(op).__name__) for op in operators]
+            OperatorStats(type(op).__name__,
+                          node_fp=getattr(op, "_hbo_fp", None))
+            for op in operators]
+        #: per operator, the output pages' live-row counts still on the
+        #: device: summed into ``output_rows`` once the driver finished
+        #: (one read instead of a synchronise per page)
+        self._row_sums: List[List] = [[] for _ in operators]
 
     def _call(self, idx: int, fn):
-        """Run one operator call, attributing its wall time to
-        stats[idx] when collecting stats."""
+        """Run one operator call, attributing its wall time, first calls
+        and (under profiling) program costs to stats[idx] when
+        collecting stats."""
         if not self.collect_stats:
             return fn()
+        st = self.stats[idx]
         t0 = time.perf_counter_ns()
+        c0 = jit_stats.thread_total()
+        prof = profiler.enabled()
+        if prof:
+            p0 = profiler.thread_totals()
+            d0 = profiler.thread_device_ms()
+            profiler.thread_programs()  # drop names run outside operators
         out = fn()
-        self.stats[idx].wall_ns += time.perf_counter_ns() - t0
+        if prof:
+            d1 = profiler.thread_device_ms()  # reads this call's events
+            p1 = profiler.thread_totals()
+            st.flops += p1[0] - p0[0]
+            st.device_bytes += p1[1] - p0[1]
+            st.compile_ms += p1[2] - p0[2]
+            st.device_ms += d1 - d0
+            st.programs.update(profiler.thread_programs())
+        st.wall_ns += time.perf_counter_ns() - t0
+        st.compile_count += jit_stats.thread_total() - c0
         return out
+
+    def _count_page(self, idx: int, page):
+        st = self.stats[idx]
+        st.output_pages += 1
+        valid = getattr(page, "valid", None)
+        if isinstance(valid, torch.Tensor):
+            self._row_sums[idx].append(valid.sum())
+        else:
+            st.output_rows += page.count()
 
     def process(self) -> bool:
         """One scheduling quantum: move pages between adjacent operators.
@@ -84,9 +152,7 @@ class Driver:
                 page = self._call(i, cur.get_output)
                 if page is not None:
                     if self.collect_stats:
-                        st = self.stats[i]
-                        st.output_pages += 1
-                        st.output_rows += page.count()
+                        self._count_page(i, page)
                     self._call(i + 1, lambda: nxt.add_input(page))
                     moved = True
         # drain the tail operator (sinks produce no output)
@@ -98,14 +164,24 @@ class Driver:
         return ops[-1].is_finished()
 
     def collect_operator_metrics(self):
-        """Pull per-operator metrics into the stats entries. Call after
-        the driver finished."""
+        """Pull per-operator metrics and the pending row counts into the
+        stats entries. Call after the driver finished."""
+        for st, sums in zip(self.stats, self._row_sums):
+            if sums:
+                st.output_rows += int(torch.stack(sums).sum())
+                sums.clear()
         for op, st in zip(self.operators, self.stats):
             m = getattr(op, "metrics", None)
             if callable(m):
                 got = m()
                 if got:
                     st.metrics = dict(got)
+            # per-operator memory high-water mark (the context's peak
+            # survives close()) — history-based statistics record it
+            ctx = getattr(op, "_ctx", None)
+            peak = getattr(ctx, "peak", 0) if ctx is not None else 0
+            if peak:
+                st.metrics = dict(st.metrics or {}, peak_bytes=peak)
 
     def run_to_completion(self, max_quanta: int = 1_000_000):
         for _ in range(max_quanta):

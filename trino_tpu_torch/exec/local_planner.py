@@ -107,7 +107,8 @@ class LocalExecutionPlanner:
                  hybrid_join: bool = True,
                  hybrid_join_fanout: int = 0,
                  hybrid_join_max_depth: int = 3,
-                 processor_cache=None, progress=None, params=None):
+                 processor_cache=None, progress=None, hbo=None,
+                 params=None):
         self.metadata = metadata
         self.device = device
         self.desired_splits = desired_splits
@@ -136,6 +137,12 @@ class LocalExecutionPlanner:
         #: live progress tracker (telemetry.progress.QueryProgress):
         #: table scans feed rows_scanned, the plan feeds task counts
         self.progress = progress
+        #: history-based statistics binding
+        #: (telemetry.stats_store.HboContext): when set, every plan
+        #: node's realizing operator is tagged with its canonical
+        #: fingerprint (actuals recording) and hybrid join builds size
+        #: their fan-out from the node's recorded spill
+        self.hbo = hbo
         #: template-parameter bindings: GLOBAL literal-slot index -> raw
         #: scalar. A template plan's IR carries opaque ParamRefs; this
         #: map binds them for ONE statement. None/{} for ordinary
@@ -184,16 +191,22 @@ class LocalExecutionPlanner:
         return self.memory_pool is not None \
             and self.memory_pool.spill_enabled
 
-    def _hybrid_opts(self, join_type: str) -> Optional[Dict]:
+    def _hybrid_opts(self, join_type: str, node=None) -> Optional[Dict]:
         """HashBuilderOperator ``hybrid`` options, or None when hybrid
         degradation is off. FULL OUTER stays wholesale: its
-        unmatched-build tail needs the complete index in one piece. (The
-        JAX engine also passes the history-based statistics' spill hint
-        of the node's last run; this engine plans with ``hbo=None``.)"""
+        unmatched-build tail needs the complete index in one piece. The
+        hint is the HBO spill record of this node's previous run — the
+        stamped ``hybrid_hint`` when the optimizer annotated one, else a
+        direct store lookup."""
         if not self.hybrid_join or join_type == "full":
             return None
+        hint = getattr(node, "hybrid_hint", None) if node is not None \
+            else None
+        if hint is None and node is not None and self.hbo is not None:
+            hint = self.hbo.spill_hint(self.hbo.fp(node))
         return {"fanout": self.hybrid_join_fanout,
-                "max_depth": self.hybrid_join_max_depth}
+                "max_depth": self.hybrid_join_max_depth,
+                "hint": hint}
 
     def plan(self, root: OutputNode) -> LocalExecutionPlan:
         ops, layout, types_ = self.visit(root.source)
@@ -219,7 +232,15 @@ class LocalExecutionPlanner:
             raise TrinoError(
                 f"no local planning for {type(node).__name__} in the "
                 "torch engine", "NOT_SUPPORTED")
-        return m(node)
+        out = m(node)
+        if self.hbo is not None and out[0]:
+            # the tail operator realizes this node's output: tag it
+            # with the canonical fingerprint so the driver's stats can
+            # be keyed back to the plan node (a node that adds no
+            # operator re-tags its child's tail — same output stream,
+            # so the actual is identical either way)
+            out[0][-1]._hbo_fp = self.hbo.fp(node)
+        return out
 
     def _v_TableScanNode(self, node: TableScanNode):
         conn = self.metadata.connectors[node.catalog]
@@ -290,7 +311,8 @@ class LocalExecutionPlanner:
     def _v_JoinNode(self, node: JoinNode):
         return self._plan_join(node.join_type, node.left, node.right,
                                node.criteria, node.filter_expr,
-                               node.strategy, node.strategy_detail)
+                               node.strategy, node.strategy_detail,
+                               node=node)
 
     def _v_CrossJoinNode(self, node: CrossJoinNode):
         # const-key equi join (build side replicated once)
@@ -300,7 +322,7 @@ class LocalExecutionPlanner:
                    criteria: List[Tuple[Symbol, Symbol]],
                    filter_expr: Optional[RowExpression],
                    strategy: str = "sorted-index",
-                   strategy_detail: str = ""):
+                   strategy_detail: str = "", node=None):
         build_dfs = []
         if self.dynamic_filtering:
             from .dynamic_filter import plan_dynamic_filters
@@ -332,12 +354,18 @@ class LocalExecutionPlanner:
             build_keys = [blayout[rsym.name] for _, rsym in criteria]
 
         bridge = JoinBridge()
-        bops.append(HashBuilderOperator(
+        builder = HashBuilderOperator(
             btypes, build_keys, bridge, self.device,
             memory_context=self._mem_ctx("join-build"),
             dynamic_filters=[(blayout[rs.name], df)
                              for rs, df in build_dfs],
-            hybrid=self._hybrid_opts(join_type)))
+            hybrid=self._hybrid_opts(join_type, node))
+        if self.hbo is not None and node is not None:
+            # the builder shares the join node's fingerprint (its
+            # output_rows are 0, so the row actual is untouched); its
+            # hybrid_spill metric is what spill_hint() serves next run
+            builder._hbo_fp = self.hbo.fp(node)
+        bops.append(builder)
         self.pipelines.append(PhysicalPipeline(bops))
 
         filter_fn = None

@@ -5,68 +5,15 @@ Reference analog: ``execution/QueryStats.java`` / ``StageInfo`` /
 aggregates from task status updates and serves on ``/v1/query/{id}``
 and through EXPLAIN ANALYZE.
 
-The JAX engine's ``trino_tpu/exec/stats.py``, copied. This engine's
-``OperatorStats`` carries no jit compile count or compiled-program cost,
-so the operator entries leave those fields out. ``trace_line`` and
-``q_error`` are copies of the JAX engine's ``telemetry/tracing.py`` and
-``telemetry/stats_store.py`` helpers (those modules are not ported).
+The JAX engine's ``trino_tpu/exec/stats.py``, copied.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional
 
 from .driver import OperatorStats
-
-
-def q_error(estimate: float, actual: float) -> float:
-    """The classic symmetric estimation error max(e/a, a/e), floored at
-    one row on both sides so empty results stay finite."""
-    e = max(float(estimate), 1.0)
-    a = max(float(actual), 1.0)
-    return max(e / a, a / e)
-
-
-def _span_tree(spans: List[dict]) -> Tuple[List[dict],
-                                           Dict[str, List[dict]],
-                                           List[dict]]:
-    """(roots, children-by-parent-id, orphans). An orphan is a non-root
-    span whose parent_id matches no span in the set."""
-    by_id = {s["span_id"]: s for s in spans}
-    children: Dict[str, List[dict]] = {}
-    roots, orphans = [], []
-    for s in spans:
-        pid = s.get("parent_id")
-        if pid is None:
-            roots.append(s)
-        elif pid in by_id:
-            children.setdefault(pid, []).append(s)
-        else:
-            orphans.append(s)
-    for kids in children.values():
-        kids.sort(key=lambda s: s["start"])
-    return roots, children, orphans
-
-
-def trace_line(spans: List[dict]) -> Optional[str]:
-    """One EXPLAIN ANALYZE line: the critical path (at each level the
-    child whose end time is latest) with per-span durations, plus
-    tree-health counts."""
-    if not spans:
-        return None
-    roots, children, orphans = _span_tree(spans)
-    path: List[dict] = []
-    if roots:
-        path = [max(roots, key=lambda s: s["end"] - s["start"])]
-        while children.get(path[-1]["span_id"]):
-            path.append(max(children[path[-1]["span_id"]],
-                            key=lambda s: s["end"]))
-    steps = " > ".join(
-        f"{s['name']} {(s['end'] - s['start']) * 1e3:.1f}ms"
-        for s in path)
-    return (f"Trace: {len(spans)} spans ({len(orphans)} orphans), "
-            f"critical path: {steps}")
 
 
 @dataclass
@@ -94,6 +41,11 @@ class TaskStatsTree:
                 {"name": o.name, "rows": o.output_rows,
                  "pages": o.output_pages,
                  "wall_ms": round(o.wall_ns / 1e6, 2),
+                 "compiles": o.compile_count,
+                 **({"flops": o.flops,
+                     "device_bytes": o.device_bytes,
+                     "compile_ms": round(o.compile_ms, 2)}
+                    if (o.flops or o.compile_ms) else {}),
                  **({"exchange": o.metrics} if o.metrics else {})}
                 for o in self.operators],
         }
@@ -193,7 +145,11 @@ class QueryStatsTree:
     def trace_line(self) -> Optional[str]:
         """One EXPLAIN ANALYZE line: span count + the critical path
         through the assembled trace tree; None when tracing was off."""
-        return trace_line(self.trace) if self.trace else None
+        if not self.trace:
+            return None
+        from ..telemetry.tracing import trace_line
+
+        return trace_line(self.trace)
 
     def cluster_memory_line(self) -> Optional[str]:
         """One EXPLAIN ANALYZE line for the cluster memory view; None
@@ -275,11 +231,20 @@ class QueryStatsTree:
                     if a is None:
                         agg[i] = OperatorStats(o.name, o.output_rows,
                                                o.output_pages, o.wall_ns,
-                                               metrics=o.metrics)
+                                               o.compile_count,
+                                               flops=o.flops,
+                                               device_bytes=o.device_bytes,
+                                               compile_ms=o.compile_ms,
+                                               metrics=o.metrics,
+                                               node_fp=o.node_fp)
                     else:
                         a.output_rows += o.output_rows
                         a.output_pages += o.output_pages
                         a.wall_ns += o.wall_ns
+                        a.compile_count += o.compile_count
+                        a.flops += o.flops
+                        a.device_bytes += o.device_bytes
+                        a.compile_ms += o.compile_ms
                         # exchange metrics describe the ONE shared
                         # boundary object; every task reports the same
                         # dict, so keep the first
@@ -287,10 +252,11 @@ class QueryStatsTree:
                             a.metrics = o.metrics
             for i in sorted(agg):
                 line = "    " + agg[i].line()
-                fp = getattr(agg[i], "node_fp", None)
-                est = (self.estimates or {}).get(fp) \
-                    if fp is not None else None
+                est = (self.estimates or {}).get(agg[i].node_fp) \
+                    if agg[i].node_fp is not None else None
                 if est is not None:
+                    from ..telemetry.stats_store import q_error
+
                     line += (f" [est {est:.0f} rows, q="
                              f"{q_error(est, agg[i].output_rows):.2f}]")
                 lines.append(line)

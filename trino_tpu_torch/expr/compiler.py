@@ -160,6 +160,17 @@ class PageProcessor:
         else:
             self._filter_plan = None
             self._proj_plans = self._plans
+        # profiled (telemetry.profiler) under the SAME semantic key the
+        # ProcessorCache uses — (input types, projection/filter IR) IS
+        # the program identity; the burst's per-mode programs are made
+        # on first use
+        from ..telemetry.profiler import instrument
+
+        self._prog = instrument(
+            "page_processor", self._run,
+            key=(tuple(self.input_types), tuple(self.projections),
+                 filter_expr))
+        self._batched_progs: Dict[str, object] = {}
 
     @property
     def output_types(self) -> List[T.Type]:
@@ -922,8 +933,8 @@ class PageProcessor:
         device = dpage.device
         luts = self._fill_luts(dicts, device)
         bound = tuple(torch.as_tensor(p, device=device) for p in params)
-        cols, nulls, valid = self._run(dpage.cols, dpage.nulls, dpage.valid,
-                                       luts, bound)
+        cols, nulls, valid = self._prog(dpage.cols, dpage.nulls,
+                                        dpage.valid, luts, bound)
         with self._cache_lock:
             out_dicts = self._resolve_out_dicts(dicts)
         return DevicePage(self.output_types, cols, nulls, valid, out_dicts)
@@ -946,7 +957,16 @@ class PageProcessor:
             else int(valid.shape[0])
         luts = self._fill_luts(dicts, device)
         bound = tuple(p.to(device).reshape(-1, 1) for p in params_batch)
-        out_cols, out_nulls, new_valid = self._run(
+        with self._cache_lock:
+            prog = self._batched_progs.get(mode)
+            if prog is None:
+                from ..telemetry.profiler import instrument
+
+                prog = self._batched_progs[mode] = instrument(
+                    "page_processor_batched", self._run,
+                    key=(mode, tuple(self.input_types),
+                         tuple(self.projections), self.filter_expr))
+        out_cols, out_nulls, new_valid = prog(
             cols, nulls, valid, luts, bound,
             shape=(depth, valid.shape[-1]))
         with self._cache_lock:

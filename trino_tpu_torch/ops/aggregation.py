@@ -42,6 +42,7 @@ from ..types import TypeError_
 from .hashtable import hash_group_ids, hash_segment_reduce, \
     hashable_key_types
 from .kernels import segment_reduce_columns
+from ..telemetry.profiler import instrument
 from .operator import Operator
 from .sortkeys import group_operands, lexsort_indices
 
@@ -360,6 +361,11 @@ def group_reduce(key_ops: Sequence, key_raws: Sequence,
     out_key_nulls = tuple(s_keyops[2 * i][safe_idx] > 0
                           for i in range(len(key_raws)))
     return out_key_raws, out_key_nulls, tuple(reduced), out_valid
+
+
+# profiled program (telemetry.profiler): a plain call when profiling is off
+group_reduce = instrument("sort_group_reduce", group_reduce,
+                          static_argnames=("kinds",))
 
 
 class HashAggregationOperator(Operator):

@@ -26,6 +26,7 @@ import torch
 
 from .. import types as T
 from ..block import DevicePage, padded_size
+from ..telemetry.profiler import instrument
 from .operator import Operator
 from .sort import _concat_pages
 from .sortkeys import SortKey, lexsort_indices
@@ -60,6 +61,11 @@ def _topn_kernel(part_ops, order_ops, cols, nulls, valid, ranking: str,
     front = perm[order2]
     return ([c[front] for c in cols], [x[front] for x in nulls],
             keep[order2], rk[order2], int(keep.sum()))
+
+
+# profiled program (telemetry.profiler): a plain call when profiling is off
+_topn_kernel = instrument("grouped_topn_kernel", _topn_kernel,
+                          static_argnames=("ranking", "max_rank"))
 
 
 class GroupedTopNOperator(Operator):

@@ -37,6 +37,7 @@ from typing import Sequence, Tuple
 import torch
 
 from .. import types as T
+from ..telemetry.profiler import instrument
 from .kernels import segment_reduce_columns
 
 #: linear-probe rounds per page: with load factor <= 0.5 and a 64-bit
@@ -203,3 +204,11 @@ def hash_segment_reduce(gid, group_rows, ngroups: int, key_raws: Tuple,
     out_key_raws = tuple(kr[safe_idx] for kr in key_raws)
     out_key_nulls = tuple(kn[safe_idx] & out_valid for kn in key_nulls)
     return out_key_raws, out_key_nulls, tuple(reduced), out_valid
+
+
+# profiled programs (telemetry.profiler), under the JAX engine's names;
+# plain calls when profiling is off
+hash_group_ids = instrument("hash_group_ids", hash_group_ids,
+                            static_argnames=("rounds", "exact"))
+hash_segment_reduce = instrument("hash_segment_reduce", hash_segment_reduce,
+                                 static_argnames=("kinds",))

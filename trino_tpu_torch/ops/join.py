@@ -53,6 +53,7 @@ import torch
 from .. import types as T
 from ..block import (DevicePage, Dictionary, padded_size, storage_dtype,
                      unify_dictionaries)
+from ..telemetry.profiler import instrument
 from .hashtable import _i64, _shr
 from .operator import Operator
 from .sort import _pad
@@ -137,13 +138,24 @@ def _build_sorted(key, anynull, cols, nulls, valid):
             [c[order] for c in cols], [n[order] for n in nulls])
 
 
-def _probe_counts(build_keys, build_usable, probe_keys, probe_usable):
+# profiled programs (telemetry.profiler), under the JAX engine's names;
+# plain calls when profiling is off. ``_probe_counts_impl`` is what the
+# batched executor composes, as the JAX engine composes its un-jitted
+# implementation; the expansion below runs inside ``_expand_verified``
+# in both engines, never as a program of its own
+_build_sorted = instrument("join_build_sorted", _build_sorted)
+
+
+def _probe_counts_impl(build_keys, build_usable, probe_keys, probe_usable):
     """Each probe row's candidate range: (lo, count) into the sorted
     build keys."""
     lo = torch.searchsorted(build_keys, probe_keys)
     hi = torch.searchsorted(build_keys, probe_keys, right=True)
     count = torch.where(probe_usable, hi - lo, 0)
     return lo, count
+
+
+_probe_counts = instrument("join_probe_counts", _probe_counts_impl)
 
 
 def _expand_matches(lo, count, out_cap: int):
@@ -333,7 +345,7 @@ class HybridJoinState:
         self._lock = threading.RLock()
         self.fanout = fanout
         self.max_depth = max_depth
-        self.source = source        # fanout provenance: session|local
+        self.source = source        # fanout provenance: session|hbo|local
         self.depth = depth
         self.salt = _salt_for_depth(depth)
         self.resident = frozenset(range(fanout))
@@ -513,9 +525,10 @@ class HashBuilderOperator(Operator):
         # DynamicFilterSourceOperator collecting build values)
         self.dynamic_filters = list(dynamic_filters)
         #: hybrid-hash-join options from the planner: {"fanout": session
-        #: override (0 = auto), "max_depth": recursion bound}, or None
-        #: when hybrid degradation is off (FULL OUTER, or disabled by
-        #: session property)
+        #: override (0 = auto), "max_depth": recursion bound, "hint": the
+        #: HBO spill record of this node's last run (sizes fan-out with
+        #: source=hbo)}, or None when hybrid degradation is off (FULL
+        #: OUTER, or disabled by session property)
         self._hybrid = hybrid
         self._hstate: Optional[HybridJoinState] = None
         #: parallel to _pages in partitioned mode: the partition id of
@@ -567,17 +580,33 @@ class HashBuilderOperator(Operator):
 
     def _init_partitions(self):
         """First revocation: decide the fan-out and enter partitioned
-        mode. The session's ``hybrid_join_fanout`` wins; otherwise the
-        fan-out is sized so one partition fits in ~1/4 of the pool, with
-        the bytes seen so far doubled as the guess of the whole build,
-        rounded through the process-wide ``KERNEL_SIZING`` history as the
-        JAX engine rounds it."""
+        mode. The session's ``hybrid_join_fanout`` wins; then the HBO
+        spill hint of this node's previous run (source=hbo — the second
+        run sizes its fan-out right); otherwise the fan-out is sized so
+        one partition fits in ~1/4 of the pool, with the bytes seen so
+        far doubled as the guess of the whole build, rounded through the
+        process-wide ``KERNEL_SIZING`` history as the JAX engine rounds
+        it."""
         from ..exec.memory import device_page_bytes
         from .kernel_sizing import KERNEL_SIZING
 
         opts = self._hybrid or {}
+        hint = opts.get("hint") or {}
         if opts.get("fanout"):
             fanout, source = int(opts["fanout"]), "session"
+        elif hint.get("fanout"):
+            # size from the previous run's observed spill: a build that
+            # spilled a meaningful fraction gets a finer fan-out so each
+            # partition fits without recursion; one that barely spilled
+            # keeps its grain
+            fanout, source = int(hint["fanout"]), "hbo"
+            frac = float(hint.get("fraction") or 0.0)
+            if frac > 0.5:
+                fanout *= 4
+            elif frac > 0.125:
+                fanout *= 2
+            if int(hint.get("repartitions") or 0) > 0:
+                fanout *= 2
         else:
             pool = self._ctx.pool
             dev_bytes = sum(device_page_bytes(p) for p in self._pages

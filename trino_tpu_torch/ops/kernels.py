@@ -9,7 +9,11 @@ The counterpart of ``trino_tpu/ops/pallas_kernels.py``. Each kernel has:
   the wrapper runs for tensors on the CPU and nothing on the CUDA path
   calls;
 - a wrapper that launches the kernel for CUDA tensors and counts its
-  launches in a plain integer attribute (``segment_reduce.launches``).
+  launches in a plain integer attribute (``segment_reduce.launches``);
+  the library call runs through the program profiler as the JAX
+  engine's ``segment_reduce_pallas`` program, so under profiling its
+  calls equal its launches and its device time is read from CUDA
+  events around the launch alone.
 
 A CUDA tensor never reaches the plain version: a wrong dtype, layout or
 device, a failed build and a failed launch all raise.
@@ -23,9 +27,12 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from typing import List, Optional, Sequence
 
 import torch
+
+from ..telemetry.profiler import instrument
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -37,6 +44,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _lib: Optional[ctypes.CDLL] = None
 #: rows per tile of the kernel, read from the library once it is loaded
 _tile_rows = 0
+#: wall ms of the library's build (when this process built it) and load;
+#: charged once per process to the kernel's first profiler entry
+_load_ms = 0.0
+_load_ms_charged = False
 _build_lock = threading.Lock()
 #: guards the launch counters: a server runs statements on several
 #: threads, and ``launches += 1`` is not atomic under threads
@@ -84,9 +95,10 @@ def build() -> str:
 
 
 def _library() -> ctypes.CDLL:
-    global _lib, _tile_rows
+    global _lib, _tile_rows, _load_ms
     with _build_lock:
         if _lib is None:
+            t0 = time.perf_counter()
             lib = ctypes.CDLL(build())
             vp = ctypes.c_void_p
             lib.segment_reduce_columns.argtypes = [
@@ -100,8 +112,20 @@ def _library() -> ctypes.CDLL:
             lib.segment_reduce_error_string.argtypes = [ctypes.c_int]
             lib.segment_reduce_error_string.restype = ctypes.c_char_p
             _tile_rows = lib.segment_reduce_tile_rows()
+            _load_ms = (time.perf_counter() - t0) * 1e3
             _lib = lib
         return _lib
+
+
+def _charge_load_ms() -> float:
+    """The library's build + load wall, the first time it is asked for
+    after the library loaded (once per process), else 0."""
+    global _load_ms_charged
+    with _build_lock:
+        if _load_ms_charged or _lib is None:
+            return 0.0
+        _load_ms_charged = True
+        return _load_ms
 
 
 # ---------------------------------------------------------------------------
@@ -229,11 +253,9 @@ def segment_reduce_columns(cols: Sequence[torch.Tensor], gid: torch.Tensor,
     if len(cols) != len(kinds):
         raise ValueError(f"segment_reduce: {len(cols)} columns, "
                          f"{len(kinds)} kinds")
-    kind_codes = []
     for kind in kinds:
         if kind not in _KIND_CODE:
             raise ValueError(f"segment_reduce: unknown kind {kind!r}")
-        kind_codes.append(_KIND_CODE[kind])
     if not (gid.is_cuda or any(c.is_cuda for c in cols)
             or (order is not None and order.is_cuda)):
         return segment_reduce_columns_reference(cols, gid, num_segments,
@@ -241,7 +263,16 @@ def segment_reduce_columns(cols: Sequence[torch.Tensor], gid: torch.Tensor,
     dtype_codes = _dtype_codes(cols, gid, order, num_segments)
     if not cols:
         return []
-    lib = _library()
+    return _launch(cols, gid, num_segments, tuple(kinds), order,
+                   dtype_codes)
+
+
+def _launch(cols, gid, num_segments: int, kinds: tuple, order,
+            dtype_codes) -> List[torch.Tensor]:
+    """One launch of the kernel's library over checked CUDA tensors: the
+    outputs and the tile-edge carries are allocated here, then ``_run``
+    makes the library call."""
+    _library()
     dev = gid.device
     n = gid.shape[0]
     k = len(cols)
@@ -257,20 +288,50 @@ def segment_reduce_columns(cols: Sequence[torch.Tensor], gid: torch.Tensor,
     carry_gid = torch.empty((carries,), dtype=torch.int32, device=dev)
     # 8 bytes per carry value, whatever the column's dtype
     carry_val = torch.empty((k * carries,), dtype=torch.int64, device=dev)
+    _run(cols, gid, order, outs, carry_gid, carry_val, num_segments, kinds,
+         tuple(dtype_codes))
+    return outs
+
+
+def _run_ops(cols, gid, *_):
+    """One operation per state column per row: the count
+    ``chip_smoke.py`` bounds the kernel with."""
+    return len(cols) * gid.shape[0]
+
+
+def _run(cols, gid, order, outs, carry_gid, carry_val, num_segments: int,
+         kinds: tuple, dtype_codes: tuple) -> None:
+    """The library call: fill, tiles and carries of every column into
+    ``outs``, on the current stream."""
+    lib = _library()
+    n = gid.shape[0]
+    k = len(cols)
+    kind_codes = [_KIND_CODE[kind] for kind in kinds]
     rc = lib.segment_reduce_columns(
         (ctypes.c_void_p * k)(*[c.data_ptr() for c in cols]),
         (ctypes.c_void_p * k)(*[o.data_ptr() for o in outs]),
         (ctypes.c_int * k)(*dtype_codes), (ctypes.c_int * k)(*kind_codes),
         k, gid.data_ptr(), None if order is None else order.data_ptr(), n,
         num_segments, carry_gid.data_ptr(), carry_val.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
+        torch.cuda.current_stream(gid.device).cuda_stream)
     if rc != 0:
         msg = lib.segment_reduce_error_string(rc).decode(errors="replace")
         raise RuntimeError(f"segment_reduce launch failed: CUDA error "
                            f"{rc} ({msg})")
     with _count_lock:
         segment_reduce.launches += 1
-    return outs
+
+
+# the library call, profiled as the JAX engine's Pallas program
+# (trino_tpu/ops/pallas_kernels.py ``segment_reduce_pallas``): recorded on
+# every launch, even inside another profiled program. The outputs are
+# allocated before it, so its event span holds the launch alone: when
+# the stream is idle as the call begins (as on q1's pages), a span
+# around the allocation would time the host's allocation instead. Its
+# bytes are the inputs, the outputs and the carries, each once.
+_run = instrument("segment_reduce_pallas", _run,
+                  static_argnames=("num_segments", "kinds"),
+                  flops=_run_ops, kernel=True, compile_ms=_charge_load_ms)
 
 
 def segment_tile_rows(device) -> int:

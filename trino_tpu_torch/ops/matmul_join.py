@@ -41,6 +41,7 @@ import torch
 
 from .. import types as T
 from ..block import DevicePage, padded_size
+from ..telemetry.profiler import instrument
 from .join import KEY_SENTINEL, BuildSide, JoinBridge, LookupJoinOperator
 
 #: default cap on the dense key domain (``matmul_join_max_key_range``):
@@ -76,6 +77,12 @@ def _build_code_table(key_sorted, klo: int, k_range: int, kp: int):
     return torch.stack([cnt, first], dim=1).to(torch.float64)
 
 
+# profiled programs (telemetry.profiler), under the JAX engine's names;
+# plain calls when profiling is off
+_build_code_table = instrument("matmul_join_build_table", _build_code_table,
+                               static_argnames=("kp",))
+
+
 def _blocked_onehot_matmul(codes, table):
     """(m, C) = OneHot(codes) @ table, blocked (_MB x _KB): out[i, :] =
     table[codes[i], :] computed as dense float64 products (codes == kp
@@ -108,11 +115,19 @@ def _matmul_lo_count(pkey, pusable, klo: int, k_range: int, table):
     return lo, count
 
 
+_matmul_lo_count = instrument("matmul_join_probe", _matmul_lo_count)
+
+
 def _membership_page_valid(valid, count, anti: bool):
     """Semi/anti output mask straight from the matmul counts (exact
     codes: count > 0 IS raw-key membership, no expansion or verify)."""
     matched = count > 0
     return valid & ~matched if anti else valid & matched
+
+
+_membership_page_valid = instrument("matmul_join_membership",
+                                    _membership_page_valid,
+                                    static_argnames=("anti",))
 
 
 class MatmulJoinOperator(LookupJoinOperator):

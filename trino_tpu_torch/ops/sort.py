@@ -27,6 +27,7 @@ import torch
 
 from .. import types as T
 from ..block import DevicePage, padded_size, unify_dictionaries
+from ..telemetry.profiler import instrument
 from .operator import Operator
 from .sortkeys import SortKey, lexsort_indices, sort_operands
 
@@ -36,6 +37,10 @@ def sorted_by(key_ops: Sequence[torch.Tensor], cols, nulls, valid):
     input order (the JAX engine's ``_sorted_by`` is a stable sort too)."""
     perm = lexsort_indices([(~valid).to(torch.uint8)] + list(key_ops))
     return ([c[perm] for c in cols], [n[perm] for n in nulls], valid[perm])
+
+
+# profiled program (telemetry.profiler): a plain call when profiling is off
+sorted_by = instrument("sort_by", sorted_by)
 
 
 def _make_key_ops(page: DevicePage, keys: Sequence[SortKey]):

@@ -38,6 +38,7 @@ import torch
 
 from .. import types as T
 from ..block import DevicePage, padded_size, storage_dtype
+from ..telemetry.profiler import instrument
 from ..types import TrinoError
 from .operator import Operator
 from .sort import _concat_pages
@@ -348,6 +349,11 @@ def _window_kernel(part_ops, order_ops, cols, nulls, valid,
     out_cols = [r for r, _ in outs]
     out_nulls = [zeros_b if nl is None else nl for _, nl in outs]
     return s_cols, s_nulls, s_valid, out_cols, out_nulls
+
+
+# profiled program (telemetry.profiler): a plain call when profiling is off
+_window_kernel = instrument("window_kernel", _window_kernel,
+                            static_argnames=("calls",))
 
 
 def partition_operands(page: DevicePage, channels: Sequence[int],

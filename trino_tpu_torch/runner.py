@@ -17,12 +17,17 @@ build under memory pressure, UNION/INTERSECT/EXCEPT, scalar subqueries,
 window functions, grouped top-N, sort, TopN, limit/offset), CTAS and
 INSERT, CREATE/DROP TABLE, DELETE (memory connector), SHOW SESSION/
 CATALOGS/SCHEMAS/TABLES/COLUMNS, SET SESSION, EXPLAIN and EXPLAIN
-ANALYZE.
+ANALYZE (VERBOSE included).
 
-Left out of the JAX engine's runner: history-based statistics (this
-runner plans with ``hbo=None``, whatever ``hbo_enabled`` says, so a
-burst always pads to a power of two), the compiled-program profiler
-(EXPLAIN ANALYZE VERBOSE raises NOT_SUPPORTED) and the slow-query log.
+Around execution, as in the JAX engine: history-based statistics
+(``hbo_enabled``, on by default — a statement's recorded per-node
+actuals steer its next planning, size its admission and its burst
+depth, and a material misestimate drops its cached plans), the program
+profiler (``query_profiling_enabled`` and EXPLAIN ANALYZE VERBOSE:
+per-program calls and CUDA-event spans on the card, which hold the
+device's idle time when the host is behind: ``telemetry/profiler.py``)
+and the slow-query log (``slow_query_log_threshold``, into
+``system.runtime.queries.slow``).
 
 The device is explicit: ``device`` defaults to ``"cuda"``, and a runner
 asked for CUDA on a machine without a GPU raises instead of running on
@@ -53,6 +58,10 @@ class QueryResult:
     types: List[T.Type]
     rows: List[tuple]
     stats: Optional[dict] = None
+
+    def only_value(self):
+        assert len(self.rows) == 1 and len(self.rows[0]) == 1, self.rows
+        return self.rows[0][0]
 
 
 class LocalQueryRunner:
@@ -91,6 +100,9 @@ class LocalQueryRunner:
         # query by plan_cache_enabled / result_cache_enabled
         self.query_cache = QueryCache(
             self.metadata, result_cache_bytes=result_cache_bytes)
+        #: sidecar paths already loaded into the process-wide history
+        #: store (telemetry.stats_store) — load once per path
+        self._hbo_loaded: set = set()
 
     def _scan_refs(self, root: OutputNode) -> List[tuple]:
         """Every scanned ``(catalog, schema, table, columns)`` of a plan
@@ -124,11 +136,107 @@ class LocalQueryRunner:
 
     # ------------------------------------------------------------------
 
-    def plan_statement(self, stmt: ast.Statement) -> OutputNode:
+    def create_plan(self, sql: str) -> OutputNode:
+        from .sql.parser import parse_statement
+
+        return self.plan_statement(parse_statement(sql))
+
+    def plan_statement(self, stmt: ast.Statement,
+                       hbo=None) -> OutputNode:
         planner = LogicalPlanner(self.metadata, self.session)
         root = planner.plan(stmt)
         return optimize(root, self.metadata, planner.allocator,
-                        self.session, hbo=None)
+                        self.session, hbo=hbo)
+
+    def _hbo_context(self, stmt: ast.Statement):
+        """The history-based-statistics binding for one statement, or
+        None (``hbo_enabled=false``, non-query statements, and
+        statements over unversioned catalogs — the same exclusions the
+        plan cache applies).  First use of a configured sidecar path
+        loads it into the process-wide store."""
+        from . import session_properties as SP
+
+        if not SP.value(self.session, "hbo_enabled"):
+            return None
+        from .telemetry.stats_store import HboContext, store
+
+        path = SP.value(self.session, "hbo_store_path")
+        if path and path not in self._hbo_loaded:
+            store().load(path)
+            self._hbo_loaded.add(path)
+        return HboContext.for_statement(
+            stmt, self.session, self.metadata,
+            alpha=SP.value(self.session, "hbo_ewma_alpha"))
+
+    def _hbo_record(self, ctx, shape, root, drivers, memory_stats,
+                    estimates=None) -> Optional[dict]:
+        """Post-execution history recording (host-side, drivers done):
+        fold fingerprint-tagged operator actuals into the store, drop
+        cached plans of the shape when a decision node misestimated
+        materially, and persist the sidecar when configured."""
+        from . import session_properties as SP
+
+        for d in drivers:
+            d.collect_operator_metrics()
+        op_stats = [st for d in drivers for st in d.stats]
+        scan_rows = sum(st.output_rows for st in op_stats
+                        if st.name == "TableScanOperator")
+        summary = ctx.record(
+            root, self.metadata, op_stats,
+            peak_bytes=(memory_stats or {}).get("peak_bytes", 0),
+            scan_rows=scan_rows, estimates=estimates)
+        if summary and summary["material"] and shape is not None:
+            self.query_cache.plans.invalidate_shape(shape)
+        path = SP.value(self.session, "hbo_store_path")
+        if path and summary:
+            ctx.store.save(path)
+        return summary
+
+    def _record_batched_hbo(self, ctx, shape, root, result, depth: int):
+        """History recording for a burst: the per-lane output row counts
+        ARE the per-lane operator actuals, so every real lane records
+        exactly what its serial execution would have — padding lanes
+        never record, and a spilled lane records on its serial re-run
+        instead (its batched counts are truncated)."""
+        from . import session_properties as SP
+
+        recorded = False
+        material = False
+        for lane in range(depth):
+            if lane in result.spilled:
+                continue
+            actuals = [{"fp": sr["fp"], "name": sr["name"],
+                        "rows": float(sr["rows"][lane])}
+                       for sr in result.stage_rows if sr["fp"]]
+            if not actuals:
+                return
+            try:
+                summary = ctx.record_actuals(
+                    root, self.metadata, actuals,
+                    scan_rows=result.scan_rows)
+            except Exception:
+                return
+            recorded = True
+            material = material or bool(summary and summary["material"])
+        if material and shape is not None:
+            self.query_cache.plans.invalidate_shape(shape)
+        path = SP.value(self.session, "hbo_store_path")
+        if path and recorded:
+            ctx.store.save(path)
+
+    def explain(self, sql: str) -> str:
+        """The EXPLAIN text of ``sql`` as this session would plan it now
+        (history included), with the optimizer's provenance block."""
+        from .planner.optimizer import provenance_lines
+        from .sql.parser import parse_statement
+
+        stmt = parse_statement(sql)
+        if isinstance(stmt, ast.Explain):
+            stmt = stmt.statement
+        root = self.plan_statement(stmt, hbo=self._hbo_context(stmt))
+        text = plan_tree_str(root)
+        prov = provenance_lines(root)
+        return text + ("\n" + "\n".join(prov) if prov else "")
 
     def execute(self, sql: str, user: Optional[str] = None,
                 progress=None) -> QueryResult:
@@ -145,12 +253,35 @@ class LocalQueryRunner:
 
             group = self.resource_groups.select(user)
             # memory-aware admission: the query's budget is its charge
-            # against the group's soft/hard memory limits
-            with group.run(memory_bytes=SP.value(
-                    self.session, "query_max_memory_bytes")):
+            # against the group's soft/hard memory limits — seeded DOWN
+            # from the statement's observed peak when history knows it
+            mem = SP.value(self.session, "query_max_memory_bytes")
+            hinted = self._hbo_admission_bytes(sql)
+            if hinted:
+                mem = min(mem, hinted)
+            with group.run(memory_bytes=mem):
                 return self._monitored_execute(sql, user,
                                                progress=progress)
         return self._monitored_execute(sql, user, progress=progress)
+
+    def _hbo_admission_bytes(self, sql: str) -> Optional[int]:
+        """Observed-peak admission hint (2x headroom over the EWMA
+        peak, floored): None when history has nothing for this
+        statement under the current snapshot.  Advisory only — a parse
+        error here surfaces identically on the monitored path."""
+        try:
+            pq = self.query_cache.parse(sql, self.session)
+            if not pq.is_query:
+                return None
+            ctx = self._hbo_context(pq.stmt)
+            if ctx is None:
+                return None
+            hint = ctx.statement_hint()
+        except Exception:
+            return None
+        if not hint or not hint.get("peak_bytes"):
+            return None
+        return max(int(2 * hint["peak_bytes"]), 64 << 20)
 
     # -- plan templates ------------------------------------------------
 
@@ -177,7 +308,8 @@ class LocalQueryRunner:
                     return "ordinal_param"
         return None
 
-    def _plan_template(self, pq, user: str, uses: int = 1):
+    def _plan_template(self, pq, user: str, hbo_ctx=None,
+                       uses: int = 1):
         """The shape's ``cache.PlanTemplate`` — built, cached, or None
         (disabled / not yet earned / fallback).  A template plans the
         normalized shape directly: ``ast.Parameter`` markers lower to
@@ -202,7 +334,8 @@ class LocalQueryRunner:
         seeds = None
         shape_fp = None
         if SP.value(self.session, "plan_template_seed_enabled"):
-            from .cache import statement_fingerprint, template_seeds
+            from .cache import template_seeds
+            from .telemetry.stats_store import statement_fingerprint
 
             # cluster-wide earn state: a process whose seed carries this
             # shape's use total rides the already-earned template on its
@@ -215,8 +348,15 @@ class LocalQueryRunner:
         if hit is not None:
             kind, val = hit
             return val if kind == "hit" else None
+        hint = None
+        if hbo_ctx is not None:
+            try:
+                hint = hbo_ctx.statement_hint()
+            except Exception:
+                hint = None
         if total_uses < SP.value(self.session,
-                                 "batched_execution_min_shape_uses"):
+                                 "batched_execution_min_shape_uses") \
+                and not hint:
             return None  # not yet earned: the build trial must amortize
         max_entries = SP.value(self.session, "plan_cache_entries")
         if seeds is not None:
@@ -246,7 +386,7 @@ class LocalQueryRunner:
                     seeds.note_fallback_shape(shape_fp, "string_param")
                 return None
             with template_parameters(ptypes):
-                root = self.plan_statement(pq.shape)
+                root = self.plan_statement(pq.shape, hbo=hbo_ctx)
                 # trial local plan (head literals bound): processor
                 # construction is where remaining literal-value
                 # dependence surfaces, catchably
@@ -387,7 +527,12 @@ class LocalQueryRunner:
         pqs = {i: self.query_cache.parse(sql, self.session)
                for i, sql in members}
         pq0 = pqs[members[0][0]]
-        template = self._plan_template(pq0, user, uses=len(members))
+        try:
+            hbo_ctx = self._hbo_context(pq0.stmt)
+        except Exception:
+            hbo_ctx = None
+        template = self._plan_template(pq0, user, hbo_ctx,
+                                       uses=len(members))
         if template is None:
             return served
         tc = self.query_cache.templates
@@ -441,20 +586,34 @@ class LocalQueryRunner:
         if not bound:
             return served
         max_depth = SP.value(self.session, "batched_execution_max_depth")
+        pad_limit = SP.value(self.session,
+                             "batched_execution_pad_rows_limit")
+        hint = None
+        if hbo_ctx is not None:
+            try:
+                hint = hbo_ctx.statement_hint()
+            except Exception:
+                hint = None
+        # a shape whose recorded scans are large pads no lane: a padding
+        # lane would cost a whole member's work
+        pad_exact = bool(hint and
+                         hint.get("scan_rows", 0) >= pad_limit)
         from .expr.compiler import param_raw
 
         for start in range(0, len(bound), max_depth):
             chunk = bound[start:start + max_depth]
             B = len(chunk)
-            # no history-based statistics: always pad to a power of two
-            depth = padded_size(B, minimum=1)
+            depth = B if pad_exact else padded_size(B, minimum=1)
             padded = [values for values, _, _ in chunk] + \
                 [chunk[-1][0]] * (depth - B)
             # operator construction binds the first lane's values (the
             # serial-fallback contract); execute_batched drives the
-            # processors with the STACKED vectors instead
+            # processors with the STACKED vectors instead.  hbo tags
+            # the fresh operators with node fingerprints so the per-lane
+            # row counts record actuals below.
             local = self._make_local_planner(
                 processor_cache=self.query_cache.processors,
+                hbo=hbo_ctx,
                 params={i: param_raw(t, chunk[0][0][i])
                         for i, t in enumerate(template.param_types)})
             try:
@@ -481,6 +640,9 @@ class LocalQueryRunner:
                 self.query_cache.batched_launches += \
                     B - len(result.spilled)
                 self.query_cache.batched_spills += len(result.spilled)
+            if hbo_ctx is not None:
+                self._record_batched_hbo(hbo_ctx, pq0.shape,
+                                         template.root, result, B)
             for lane_i, (values, positions, key) in enumerate(chunk):
                 if lane_i in result.spilled:
                     # this lane overflowed a unified per-lane capacity
@@ -550,12 +712,36 @@ class LocalQueryRunner:
             # the QueryStatistics analog: peak memory + wall ride the
             # completed event into the history ring buffer that backs
             # system.runtime.queries
-            monitor.completed(len(res.rows), stats={
+            stats = {
                 "wall_ms": round(wall_s * 1e3, 2),
                 "peak_memory_bytes": ((res.stats or {}).get("memory")
                                       or {}).get("peak_bytes", 0),
-            })
+            }
+            slow = self._slow_query_record(sql, wall_s, res)
+            if slow is not None:
+                stats["slow_query"] = slow
+            monitor.completed(len(res.rows), stats=stats)
         return res
+
+    def _slow_query_record(self, sql: str, wall_s: float,
+                           res: QueryResult) -> Optional[dict]:
+        """The slow-query log record when ``wall_s`` exceeds
+        ``slow_query_log_threshold`` (0 = disabled): wall + threshold,
+        the trace critical path when the run carried spans, the top-3
+        cost-attributed operators, and the worst-Q-error plan node
+        when history-based statistics recorded this run.  Rides the
+        QueryCompletedEvent stats into system.runtime.queries."""
+        from . import session_properties as SP
+
+        threshold = SP.value(self.session, "slow_query_log_threshold")
+        if not threshold or wall_s <= threshold:
+            return None
+        from .telemetry.tracing import slow_query_record
+
+        hbo = (res.stats or {}).get("hbo") or {}
+        return slow_query_record((res.stats or {}).get("trace"),
+                                 wall_s * 1e3, threshold,
+                                 worst_misestimate=hbo.get("worst"))
 
     def _execute_sql(self, sql: str, user: Optional[str] = None,
                      progress=None) -> QueryResult:
@@ -570,7 +756,8 @@ class LocalQueryRunner:
                                              verbose=stmt.verbose)
             from .planner.optimizer import provenance_lines
 
-            root = self.plan_statement(stmt.statement)
+            root = self.plan_statement(
+                stmt.statement, hbo=self._hbo_context(stmt.statement))
             lines = plan_tree_str(root).splitlines()
             prov = provenance_lines(root)
             if prov:
@@ -679,6 +866,7 @@ class LocalQueryRunner:
                 return QueryResult(list(names), list(types_),
                                    list(rows),
                                    stats={"result_cache": "hit"})
+        hbo_ctx = self._hbo_context(stmt)
         root = self.query_cache.plans.lookup(key) \
             if key is not None else None
         plan_hit = root is not None
@@ -689,7 +877,7 @@ class LocalQueryRunner:
             # ParamRef inputs at execution (the same processors the
             # batched path runs).  Template roots are never stored in
             # the plan cache — plan-cache executions pass no params.
-            template = self._plan_template(pq, user)
+            template = self._plan_template(pq, user, hbo_ctx)
             if template is not None:
                 values = self._template_binding(template, pq)
                 if values is None:
@@ -703,7 +891,7 @@ class LocalQueryRunner:
                         enumerate(zip(template.param_types, values))}
                     root = template.root
         if root is None:
-            root = self.plan_statement(stmt)
+            root = self.plan_statement(stmt, hbo=hbo_ctx)
             if key is not None:
                 self.query_cache.plans.store(
                     key, root,
@@ -713,22 +901,43 @@ class LocalQueryRunner:
             # rows-based completion estimate from connector statistics
             progress.total_rows = self._scan_rows_estimate(root)
             progress.state = "RUNNING"
+            if progress.total_rows == 0 and hbo_ctx is not None:
+                # statistics-less connectors would report no fraction
+                # forever: fall back to the rows this statement shape
+                # actually scanned on previous runs
+                hint = hbo_ctx.statement_hint()
+                if hint and hint.get("scan_rows"):
+                    progress.total_rows = int(hint["scan_rows"])
+                    progress.estimate_source = "hbo"
         local = self._make_local_planner(
             processor_cache=self.query_cache.processors
             if plan_caching else None, progress=progress,
-            params=template_params)
-        try:
-            plan = local.plan(root)
-            rows: List[tuple] = []
-            for p in plan.execute():
-                rows.extend(p.to_rows())
-            stats = {"memory": local.memory_pool.stats(),
-                     "operators": _operator_metrics(plan.drivers)}
-        finally:
-            # reap spill files and free residue on success and failure
-            local.memory_pool.close()
+            hbo=hbo_ctx, params=template_params)
+        from .telemetry.profiler import profiling
+
+        with profiling(SP.value(self.session, "query_profiling_enabled")):
+            try:
+                plan = local.plan(root)
+                # per-node actuals need per-operator row counts: the
+                # stats-collecting driver path runs exactly when HBO
+                # records
+                pages = plan.execute(collect_stats=hbo_ctx is not None)
+                rows: List[tuple] = []
+                for p in pages:
+                    rows.extend(p.to_rows())
+                stats = {"memory": local.memory_pool.stats(),
+                         "operators": _operator_metrics(plan.drivers)}
+            finally:
+                # reap spill files and free residue on success and
+                # failure
+                local.memory_pool.close()
         if progress is not None:
             progress.state = "FINISHED"
+        if hbo_ctx is not None:
+            summary = self._hbo_record(hbo_ctx, pq.shape, root,
+                                       plan.drivers, stats.get("memory"))
+            if summary:
+                stats["hbo"] = summary
         if local.dynamic_filters:
             stats["dynamic_filters"] = [df.stats()
                                         for df in local.dynamic_filters]
@@ -770,27 +979,48 @@ class LocalQueryRunner:
         """Run the query collecting per-operator stats and render the plan,
         a ``Query:`` line, a ``Memory:`` line (peak, spills, disk files)
         and one line per operator per pipeline (reference:
-        operator/ExplainAnalyzeOperator.java + PlanPrinter.java)."""
-        if verbose:
-            raise T.TrinoError(
-                "EXPLAIN ANALYZE VERBOSE needs the compiled-program "
-                "profiler, which is not ported to the torch engine yet",
-                "NOT_SUPPORTED")
-        root = self.plan_statement(stmt)
+        operator/ExplainAnalyzeOperator.java + PlanPrinter.java).
+        VERBOSE turns the program profiler on for the run, so operator
+        lines carry their programs' operations / bytes / compile ms /
+        device ms and a ``Kernels:`` line says how many programs the run
+        added to the registry.  With history-based statistics on, every
+        fingerprinted operator line carries its estimate and Q-error, a
+        worst-misestimate line renders, and the run's actuals fold into
+        the history store."""
+        from .telemetry import profiler
+
+        hbo_ctx = self._hbo_context(stmt)
+        root = self.plan_statement(stmt, hbo=hbo_ctx)
         self._check_table_access(stmt, root)  # ANALYZE executes the query
-        local = self._make_local_planner()
+        local = self._make_local_planner(hbo=hbo_ctx)
         pool = local.memory_pool
-        try:
-            plan = local.plan(root)
-            t0 = time.perf_counter()
-            pages = plan.execute(collect_stats=True)
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
-            wall = time.perf_counter() - t0
-            m = pool.stats()
-        finally:
-            pool.close()
+        before = profiler.totals() if verbose else None
+        with profiler.profiling(verbose):
+            try:
+                plan = local.plan(root)
+                t0 = time.perf_counter()
+                pages = plan.execute(collect_stats=True)
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+                wall = time.perf_counter() - t0
+                m = pool.stats()
+            finally:
+                pool.close()
         out_rows = sum(p.num_rows for p in pages)
+        est_map: Dict[str, float] = {}
+        summary = None
+        if hbo_ctx is not None:
+            # estimates BEFORE recording: the Q-errors rendered below
+            # must be the ones THIS run's planning actually used (the
+            # same walk feeds record(), so it isn't paid twice)
+            est = hbo_ctx.estimates(root, self.metadata)
+            est_map = est[0]
+            from .cache import normalize_statement
+
+            shape = normalize_statement(stmt)[0] \
+                if isinstance(stmt, ast.QueryStatement) else None
+            summary = self._hbo_record(hbo_ctx, shape, root,
+                                       plan.drivers, m, estimates=est)
         lines = plan_tree_str(root).splitlines()
         lines.append("")
         lines.append(f"Query: {wall * 1e3:.1f}ms, {out_rows} rows")
@@ -803,15 +1033,34 @@ class LocalQueryRunner:
         for i, d in enumerate(plan.drivers):
             d.collect_operator_metrics()
             lines.append(f"Pipeline {i}:")
-            lines.extend("  " + st.line() for st in d.stats)
+            for st in d.stats:
+                line = "  " + st.line()
+                est = est_map.get(st.node_fp) \
+                    if st.node_fp is not None else None
+                if est is not None:
+                    from .telemetry.stats_store import q_error
+
+                    line += (f" [est {est:.0f} rows, "
+                             f"q={q_error(est, st.output_rows):.2f}]")
+                lines.append(line)
+        if summary and summary.get("worst"):
+            w = summary["worst"]
+            lines.append(
+                f"Worst misestimate: {w['name']} est "
+                f"{w['est_rows']:.0f} rows, actual {w['actual_rows']} "
+                f"(q={w['qerror']:.2f})")
+        if verbose:
+            lines.append(_kernels_line(before, profiler.totals()))
         return QueryResult(["Query Plan"], [T.VARCHAR],
                            [(line,) for line in lines])
 
     def metrics_families(self) -> list:
         """This runner's metric families for GET /v1/metrics and
-        system.runtime.metrics: process-level sources + query lifecycle
-        counters + resource-group queue depths when admission control is
-        configured + the cache, template and batching counters."""
+        system.runtime.metrics: process-level sources (program first
+        calls, profiler totals, device memory, the history store) +
+        query lifecycle counters + resource-group queue depths when
+        admission control is configured + the cache, template and
+        batching counters."""
         from .telemetry.metrics import MetricsRegistry, process_families
 
         reg = MetricsRegistry()
@@ -939,7 +1188,7 @@ class LocalQueryRunner:
         return self.desired_splits
 
     def _make_local_planner(self, processor_cache=None, progress=None,
-                            params=None) -> LocalExecutionPlanner:
+                            hbo=None, params=None) -> LocalExecutionPlanner:
         """Session-configured planner on this runner's device: ALL
         execution paths (execute, EXPLAIN ANALYZE, the DELETE rewrite)
         honor the same session knobs.  ``params`` binds a plan
@@ -963,7 +1212,7 @@ class LocalQueryRunner:
             hybrid_join_max_depth=SP.value(self.session,
                                            "hybrid_join_max_depth"),
             processor_cache=processor_cache, progress=progress,
-            params=params)
+            hbo=hbo, params=params)
 
 
 def _operator_metrics(drivers) -> List[dict]:
@@ -974,3 +1223,17 @@ def _operator_metrics(drivers) -> List[dict]:
         d.collect_operator_metrics()
         out.extend(dict(st.metrics or {}, name=st.name) for st in d.stats)
     return out
+
+
+def _kernels_line(before: dict, after: dict) -> str:
+    """One EXPLAIN ANALYZE VERBOSE line: what this run added to the
+    program registry vs reused (a repeat-shape run must show "0 new
+    programs"), and the trace / compile wall it paid (torch programs
+    trace and compile nothing; the kernel library's first build does)."""
+    new_programs = after["programs"] - before["programs"]
+    new_compiles = after["compiles"] - before["compiles"]
+    compile_ms = after["compile_ms"] - before["compile_ms"]
+    trace_ms = after["trace_ms"] - before["trace_ms"]
+    return (f"Kernels: {after['programs']} programs in registry, "
+            f"{new_programs} new, {new_compiles} compiles this run "
+            f"(trace {trace_ms:.1f}ms, compile {compile_ms:.1f}ms)")

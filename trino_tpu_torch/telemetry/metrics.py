@@ -20,11 +20,9 @@ Histogram sample values are ``{"count": n, "sum": s,
 "buckets": [[le, cumulative_count], ...]}``.
 
 The JAX engine's ``trino_tpu/telemetry/metrics.py``, copied.
-``process_families`` keeps the families that have a counterpart in the
-torch engine (running tasks, the node memory pool); the JAX engine's
-jit-trace counts, device-exchange and writer-rebalance counters,
-compiled-program profiler totals, device memory and history-store
-families are not exported here.
+``process_families`` exports every family of the JAX engine's that has
+a counterpart in the torch engine; the device-exchange and
+writer-rebalance counters come with distribution.
 """
 
 from __future__ import annotations
@@ -237,11 +235,24 @@ def parse_prometheus(text: str) -> Dict[str, Dict[str, float]]:
 
 def process_families(tasks: Optional[int] = None,
                      memory: Optional[dict] = None) -> List[dict]:
-    """Metric families every engine process exports: — when provided —
-    the node memory-pool snapshot and the running-task count.
-    ``memory`` must be the SAME snapshot a heartbeat would ship
-    (NodeMemoryPool snapshots consume deltas on read)."""
+    """Metric families every engine process exports: program first-call
+    counters (``trino_jit_traces_total``, see ``jit_stats``), the
+    program profiler's totals and the card's memory once used, the
+    history-store families, and — when provided — the node memory-pool
+    snapshot and the running-task count.  ``memory`` must be the SAME
+    snapshot a heartbeat would ship (NodeMemoryPool snapshots consume
+    deltas on read)."""
+    from .. import jit_stats
+
     reg = MetricsRegistry()
+    traces = jit_stats.counts()
+    jit = reg.counter("trino_jit_traces_total",
+                      "First calls of a program at a new signature "
+                      "(shapes, dtypes, static values) per program")
+    for kernel, n in sorted(traces.items()):
+        jit.inc(n, kernel=kernel)
+    if not traces:
+        jit.inc(0)
     if tasks is not None:
         reg.gauge("trino_worker_tasks",
                   "Tasks currently tracked by this process").set(tasks)
@@ -254,7 +265,39 @@ def process_families(tasks: Optional[int] = None,
         reg.gauge("trino_node_memory_queries",
                   "Queries holding reservations on this node").set(
             len(memory.get("queries", {})))
-    return reg.collect()
+    from . import profiler
+
+    ptot = profiler.totals()
+    if ptot["programs"]:
+        pc = reg.counter(
+            "trino_profiler_programs_total",
+            "Program profiler registry counters "
+            "(kind=programs|compiles|fallbacks)")
+        pc.inc(ptot["programs"], kind="programs")
+        pc.inc(ptot["compiles"], kind="compiles")
+        pc.inc(ptot["fallbacks"], kind="fallbacks")
+        ps = reg.counter(
+            "trino_profiler_seconds_total",
+            "Seconds recorded by the program profiler "
+            "(kind=trace|compile|execute; trace is 0 for torch programs, "
+            "compile is the kernel library's build, execute the CUDA-event "
+            "spans of outer calls)")
+        ps.inc(ptot["trace_ms"] / 1e3, kind="trace")
+        ps.inc(ptot["compile_ms"] / 1e3, kind="compile")
+        ps.inc(ptot["outer_execute_ms"] / 1e3, kind="execute")
+    dm = profiler.device_memory_stats()
+    if dm:
+        g = reg.gauge("trino_device_memory_bytes",
+                      "CUDA allocator memory summed over the devices "
+                      "(kind=live|peak|limit; limit is the total)")
+        g.set(dm["live_bytes"], kind="live")
+        g.set(dm["peak_bytes"], kind="peak")
+        g.set(dm["limit_bytes"], kind="limit")
+    from . import stats_store
+
+    # trino_hbo_*: store size, lookup outcomes, and the misestimate
+    # histogram — empty until the first HBO-recorded query
+    return reg.collect() + stats_store.store().families()
 
 
 class ClusterMetrics:
