@@ -83,6 +83,28 @@ Phases, one JSON line each on standard output:
              does not coalesce pages);
     memory_q3_columns, memory_q18_columns — those calls replayed like
              q3's, exact, page and merge timed;
+    distributed_sf1 — the one-card distributed engine over the same
+             memory tables: ``DistributedQueryRunner(n_workers=4,
+             desired_splits=8)`` runs q1, q3 and q18 (their joins
+             PARTITIONED, so both sides shuffle) and q3 once more with
+             ``device_exchange=false`` (the host exchange), each cold and
+             warm against the oracle; every aggregation splits into a
+             partial step before the hash exchange and a final step
+             after it, both through the kernel; each warm wall beside
+             the local runner's warm wall over the same tables, the busy
+             share, every stage boundary's exchange stats, the kernel
+             calls (one per aggregated or merged page, equal to the
+             launches) and the device exchanges that ran
+             (``DeviceExchange.total_collectives``, one per hash
+             boundary; none through the host exchange); the cold runs
+             of q1 and q18 record their kernel calls with the step each
+             serves;
+    distributed_q1_columns, distributed_q18_columns — those calls
+             replayed like q3's, exact; timed: the partial step's page
+             call with the most live rows, its merge with the most
+             groups, and the final step's merge with the most groups
+             (q1's final tasks each receive one page and merge nothing:
+             its final page call);
 13. explain_analyze_sf1 — EXPLAIN ANALYZE of q18 over the memory tables:
              the plan, a ``Query:`` line whose row count is the oracle's,
              the ``Memory:`` line, one stats line per operator under
@@ -158,7 +180,8 @@ Phases, one JSON line each on standard output:
    memory/compute bound at the main path's shape (q1's page call), and
    the same at the page and merge calls of every replay above
    (``q3_shapes``, ``q18_shapes``, ``memory_q3_shapes``,
-   ``memory_q18_shapes``, ``spill_q18_shapes``,
+   ``memory_q18_shapes``, ``distributed_q1_shapes``,
+   ``distributed_q18_shapes``, ``spill_q18_shapes``,
    and ``observability_*_shapes``) and of the serving
    bursts' folded calls (``serving_shapes``);
 19. the last line: ``{"ok": true, "device": {...}}``.
@@ -173,6 +196,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -595,35 +619,83 @@ def q1_phase(card, walls):
     return launches
 
 
-def _recording(calls):
+#: the aggregation step a thread's kernel call serves (``_step_labels``)
+_STEP = threading.local()
+_RECORD_LOCK = threading.Lock()
+
+
+def _recording(calls, labels=None):
     """A stand-in for ``segment_reduce_columns`` that keeps a copy of
-    each call's inputs in ``calls`` and then makes the call."""
+    each call's inputs in ``calls`` (and, with ``labels``, the step
+    label of the calling thread beside it) and then makes the call.
+    Safe for the tasks of a distributed query, which call from several
+    threads."""
     from trino_tpu_torch.ops import kernels
 
     def record(cols, gid, num_segments, kinds, order=None):
-        calls.append(([c.clone() for c in cols], gid.clone(), num_segments,
-                      list(kinds), None if order is None else order.clone()))
+        entry = ([c.clone() for c in cols], gid.clone(), num_segments,
+                 list(kinds), None if order is None else order.clone())
+        with _RECORD_LOCK:
+            calls.append(entry)
+            if labels is not None:
+                labels.append(getattr(_STEP, "label", None))
         return kernels.segment_reduce_columns(cols, gid, num_segments, kinds,
                                               order)
     return record
 
 
 @contextlib.contextmanager
-def _recorded(calls):
+def _recorded(calls, labels=None):
     """Within the block, every ``segment_reduce_columns`` call of the
     engine's aggregation paths (serial and burst) keeps a copy of its
-    inputs in ``calls``."""
+    inputs in ``calls``; with ``labels``, the aggregation step of each
+    call (``_step_labels``) too."""
     from trino_tpu_torch.exec import batched
     from trino_tpu_torch.ops import aggregation, hashtable, kernels
 
     callers = (aggregation, hashtable, batched)
     for module in callers:
-        module.segment_reduce_columns = _recording(calls)
+        module.segment_reduce_columns = _recording(calls, labels)
     try:
-        yield
+        with _step_labels() if labels is not None \
+                else contextlib.nullcontext():
+            yield
     finally:
         for module in callers:
             module.segment_reduce_columns = kernels.segment_reduce_columns
+
+
+@contextlib.contextmanager
+def _step_labels():
+    """Within the block, an aggregation's kernel call is labelled on its
+    thread with the operator's step and whether it reduces a page or
+    merges the partials: ``partial_page``, ``partial_merge``,
+    ``final_page``, ``final_merge`` (or ``single_*``)."""
+    from trino_tpu_torch.ops.aggregation import HashAggregationOperator
+
+    op = HashAggregationOperator
+    page, merge = op._aggregate_page, op._merge_chunk
+
+    def labelled_page(self, *args, **kwargs):
+        what = "merge" if getattr(_STEP, "merging", False) else "page"
+        _STEP.label = f"{self.step}_{what}"
+        try:
+            return page(self, *args, **kwargs)
+        finally:
+            _STEP.label = None      # pooled task threads run other tasks
+
+    def labelled_merge(self, chunk):
+        _STEP.merging = True
+        try:
+            return merge(self, chunk)
+        finally:
+            _STEP.merging = False
+
+    op._aggregate_page, op._merge_chunk = labelled_page, labelled_merge
+    try:
+        yield
+    finally:
+        op._aggregate_page, op._merge_chunk = page, merge
 
 
 def q3_phase(card, walls):
@@ -1066,7 +1138,7 @@ def _host_bytes(conn, table: str) -> int:
                for p in data.pages for b in p.blocks)
 
 
-def memory_sf1_phase(card, tpch_warm):
+def memory_sf1_phase(card, tpch_warm, memory_warm):
     """CTAS of lineitem, orders and customer from ``tpch.sf1`` into
     memory tables (through the card: scan, project, TableWriter), then
     q1, q3, q6 and q18 over them, each held against the oracle, with cold
@@ -1075,7 +1147,8 @@ def memory_sf1_phase(card, tpch_warm):
     query's warm wall over the generator (``tpch_warm``). The cold runs
     of q3 and q18 keep a copy of the inputs of every kernel call they
     make. Returns the runner, the warm runs' launches per query, each
-    query's unspilled peak bytes and the recorded calls per query."""
+    query's unspilled peak bytes and the recorded calls per query; the
+    warm walls go into ``memory_warm``."""
     import torch
 
     from trino_tpu_torch import LocalQueryRunner
@@ -1124,6 +1197,7 @@ def memory_sf1_phase(card, tpch_warm):
         torch.cuda.synchronize()
         warm_s = time.perf_counter() - t0
         launches[qid] = kernels.segment_reduce.launches
+        memory_warm[qid] = round(warm_s, 4)
         _assert_same(res, _load_expected(qid), f"memory q{qid}")
         pages, cold_pages = _aggregated_pages(res), _aggregated_pages(cold)
         if pages == 0 or launches[qid] != pages or \
@@ -1144,6 +1218,158 @@ def memory_sf1_phase(card, tpch_warm):
               "peak_bytes": peaks[qid],
               "card": card["nvidia_smi"]})
     return runner, launches, peaks, calls
+
+
+#: distributed_sf1: (run name, TPC-H query, session properties); the
+#: joins of q3 and q18 shuffle both sides (PARTITIONED), the last run
+#: takes the host exchange instead of the device exchange
+DISTRIBUTED_RUNS = (
+    ("q1", 1, {}),
+    ("q3", 3, {"join_distribution_type": "PARTITIONED"}),
+    ("q18", 18, {"join_distribution_type": "PARTITIONED"}),
+    ("q3_host_exchange", 3, {"join_distribution_type": "PARTITIONED",
+                             "device_exchange": False}),
+)
+DISTRIBUTED_WORKERS = 4
+#: the runs whose cold run records its kernel calls for the replay
+DISTRIBUTED_RECORDED = ("q1", "q18")
+
+
+def _kernel_calls(res) -> int:
+    """Kernel calls a distributed run made: one per page an aggregation
+    reduced or merged (its hash and sort paths; a passed-through page
+    makes none), summed over every task."""
+    return sum(op.get("grouping_paths", {}).get(path, 0)
+               for op in res.stats["operators"]
+               if op["name"] == "HashAggregationOperator"
+               for path in ("hash", "sort"))
+
+
+def _exchange_summary(res) -> dict:
+    """Each stage boundary's exchange stats, by producing fragment."""
+    keys = ("kind", "rows", "partition_rows", "skew_ratio", "sizing_used",
+            "per_dest", "a2a_retries", "count_collectives",
+            "data_collectives", "bytes_moved")
+    return {str(fid): {k: ex[k] for k in keys if k in ex}
+            for fid, ex in sorted(res.stats["exchanges"].items()) if ex}
+
+
+def distributed_sf1_phase(card, runner, memory_warm):
+    """The one-card distributed engine over the SF1 memory tables:
+    ``DistributedQueryRunner(n_workers=4, desired_splits=8)`` runs q1,
+    q3 and q18 (their joins PARTITIONED) and q3 again through the host
+    exchange, each cold and warm, held against the oracle; each warm
+    wall beside the local runner's warm wall over the same tables
+    (``memory_warm``), the busy share, the exchange stats, the kernel
+    calls (one per aggregated or merged page, partial and final steps)
+    and the exchanges that ran (``DeviceExchange.total_collectives``);
+    the kernel and the exchange must both have run. The cold runs of q1
+    and q18 record their kernel calls with the step each serves.
+    Returns the warm runs' launches and the recorded (calls, labels)."""
+    import torch
+
+    from trino_tpu_torch.ops import kernels
+    from trino_tpu_torch.parallel import DistributedQueryRunner
+    from trino_tpu_torch.parallel.device_exchange import DeviceExchange
+    from trino_tpu_torch.resources.tpch_queries import TPCH_QUERIES
+    from trino_tpu_torch.sql.analyzer import Session
+
+    connectors = {name: conn for name, conn in
+                  runner.metadata.connectors.items() if name != "system"}
+    launches, recorded = {}, {}
+    for name, qid, props in DISTRIBUTED_RUNS:
+        session = Session(catalog="memory", schema="default")
+        session.properties.update(props)
+        dist = DistributedQueryRunner(connectors, session,
+                                      n_workers=DISTRIBUTED_WORKERS,
+                                      desired_splits=8, device="cuda")
+        sql = TPCH_QUERIES[qid]
+        calls, labels = [], []
+        t0 = time.perf_counter()
+        with _recorded(calls, labels) if name in DISTRIBUTED_RECORDED \
+                else contextlib.nullcontext():
+            cold = dist.execute(sql)
+        torch.cuda.synchronize()
+        cold_s = time.perf_counter() - t0
+        _assert_same(cold, _load_expected(qid), f"distributed {name} cold")
+        kernels.segment_reduce.launches = 0
+        exchanges0 = DeviceExchange.total_collectives
+        t0 = time.perf_counter()
+        res = dist.execute(sql)
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        launches[name] = kernels.segment_reduce.launches
+        exchanges = DeviceExchange.total_collectives - exchanges0
+        _assert_same(res, _load_expected(qid), f"distributed {name}")
+        calls_made = _kernel_calls(res)
+        device_boundaries = sum(
+            1 for ex in res.stats["exchanges"].values()
+            if ex and ex.get("kind") == "device")
+        if launches[name] == 0 or launches[name] != calls_made:
+            raise AssertionError(
+                f"distributed {name}: segment_reduce launched "
+                f"{launches[name]} times for {calls_made} aggregated and "
+                "merged pages (want one per page, and some)")
+        if name in DISTRIBUTED_RECORDED and len(calls) != _kernel_calls(cold):
+            raise AssertionError(
+                f"distributed {name}: the cold run recorded {len(calls)} "
+                f"calls for {_kernel_calls(cold)} pages")
+        want_exchanges = 0 if props.get("device_exchange") is False \
+            else device_boundaries
+        if exchanges != want_exchanges or (
+                "device_exchange" not in props and exchanges == 0):
+            raise AssertionError(
+                f"distributed {name}: {exchanges} device exchanges ran "
+                f"for {device_boundaries} device boundaries")
+        if name in DISTRIBUTED_RECORDED:
+            recorded[name] = (calls, labels)
+        steps = {}
+        for label in labels:
+            steps[label] = steps.get(label, 0) + 1
+        emit({"phase": "distributed_sf1", "query": name,
+              "workers": DISTRIBUTED_WORKERS, "properties": props,
+              "rows_out": len(res.rows), "matches_oracle": True,
+              "cold_s": round(cold_s, 3), "warm_s": round(warm_s, 4),
+              "local_memory_warm_s": memory_warm.get(qid),
+              "device_busy_share": _busy_share(lambda: dist.execute(sql)),
+              "launches": {"segment_reduce": launches[name]},
+              "cold_calls_by_step": steps or None,
+              "device_exchanges": exchanges,
+              "exchanges": _exchange_summary(res),
+              "streaming_overlap": res.stats.get("streaming_overlap"),
+              "hbo": _hbo_note(res),
+              "peak_bytes": res.stats["memory"]["peak_bytes"],
+              "card": card["nvidia_smi"]})
+    return launches, recorded
+
+
+def _step_picks(calls, labels) -> dict:
+    """The replay's timed calls of a distributed run: the partial step's
+    page call with the most live rows (``page``), its merge with the
+    most groups (``partial_merge``), and the final step's merge with
+    the most groups (``merge``, the last of equals) — or, where every
+    final task received one page from the exchange and so merges
+    nothing (q1), the final step's page call with the most groups."""
+    def live(i):
+        gid = calls[i][1]
+        return int((gid < gid.shape[0]).sum())
+
+    def groups(i):
+        gid = calls[i][1]
+        ok = gid < gid.shape[0]
+        return int(gid[ok].max()) + 1 if bool(ok.any()) else 0
+
+    pages = [i for i, lb in enumerate(labels) if lb == "partial_page"]
+    partial = [i for i, lb in enumerate(labels) if lb == "partial_merge"]
+    merges = [i for i, lb in enumerate(labels) if lb == "final_merge"] \
+        or [i for i, lb in enumerate(labels) if lb == "final_page"]
+    if not pages or not partial or not merges:
+        raise AssertionError(f"no partial page, partial merge or final "
+                             f"call among the recorded steps "
+                             f"{sorted(set(labels))}")
+    return {"page": max(pages, key=live),
+            "partial_merge": max(partial, key=lambda i: (groups(i), i)),
+            "merge": max(merges, key=lambda i: (groups(i), i))}
 
 
 _OPERATOR_LINE = r"  (\w+): (\d+) rows, (\d+) pages, [0-9.]+ms.*"
@@ -1927,7 +2153,7 @@ def _bound_ms(cols, n: int, num_segments: int, with_order: bool):
 
 
 def columns_replay_phase(phase: str, calls, page_by: str,
-                         depth: int = 0):
+                         depth: int = 0, picks=None):
     """Every ``segment_reduce_columns`` call of a recorded run, on the
     inputs the run gave it, against its plain version (ints exactly);
     then one page call (the one with the most lanes, or with the most
@@ -1935,7 +2161,8 @@ def columns_replay_phase(phase: str, calls, page_by: str,
     the most groups, the last of equals) timed beside the plain version
     and ``index_add_`` over the unsorted gids. With ``depth``, the calls
     are a burst's folded calls over ``depth`` lanes (each lane's last
-    segment is its dump segment), and the merge is the last call."""
+    segment is its dump segment), and the merge is the last call.
+    ``picks`` names the timed calls instead ({case: call index})."""
     import torch
 
     from trino_tpu_torch.ops import kernels
@@ -1960,12 +2187,14 @@ def columns_replay_phase(phase: str, calls, page_by: str,
           "kinds": sorted({k for c in calls for k in c[3]}),
           "order": all(c[4] is not None for c in calls),
           "shapes": shapes, "max_abs_err": max(errs)})
-    merge = len(calls) - 1 if depth else \
-        max(range(len(calls)), key=lambda i: (shapes[i]["groups"], i))
-    largest = max((i for i in range(len(calls)) if i != merge),
-                  key=lambda i: shapes[i][page_by])
+    if picks is None:
+        merge = len(calls) - 1 if depth else \
+            max(range(len(calls)), key=lambda i: (shapes[i]["groups"], i))
+        largest = max((i for i in range(len(calls)) if i != merge),
+                      key=lambda i: shapes[i][page_by])
+        picks = {"page": largest, "merge": merge}
     timed = {}
-    for case, i in (("page", largest), ("merge", merge)):
+    for case, i in picks.items():
         cols, gid, ns, kinds, order = calls[i]
         n = gid.shape[0]
         unsorted = torch.empty_like(gid)
@@ -2029,13 +2258,24 @@ def main() -> int:
     del q18_calls
     launches["window"] = window_phase(card)
     launches["sql_surface"] = sql_surface_phase(card)
+    memory_warm = {}
     runner, memory_launches, peaks, memory_calls = memory_sf1_phase(
-        card, tpch_warm)
+        card, tpch_warm, memory_warm)
     launches.update({f"memory_q{q}": n for q, n in memory_launches.items()})
     replayed = {"q3": q3_shapes, "q18": q18_shapes}
     for qid, page_by in ((3, "n"), (18, "live")):
         replayed[f"memory_q{qid}"] = columns_replay_phase(
             f"memory_q{qid}_columns", memory_calls.pop(qid), page_by)
+    distributed_launches, distributed_calls = distributed_sf1_phase(
+        card, runner, memory_warm)
+    launches.update({f"distributed_{name}": n
+                     for name, n in distributed_launches.items()})
+    for name in DISTRIBUTED_RECORDED:
+        calls, labels = distributed_calls.pop(name)
+        replayed[f"distributed_{name}"] = columns_replay_phase(
+            f"distributed_{name}_columns", calls, "live",
+            picks=_step_picks(calls, labels))
+        del calls
     launches["explain_analyze_q18"] = explain_analyze_phase(card, runner)
     spill_launches, spill_calls = spill_phase(card, runner, peaks)
     launches.update(spill_launches)

@@ -538,3 +538,37 @@ def test_profiling_off_makes_no_event(dev, monkeypatch):
     runner.execute(TPCH_QUERIES[1])
     runner.execute("explain analyze " + TPCH_QUERIES[1])
     assert made == []
+
+
+DISTRIBUTED_SQL = [
+    TPCH_QUERIES[1],
+    TPCH_QUERIES[3],
+    "select l_shipmode, count(*), sum(l_quantity) from lineitem "
+    "group by l_shipmode",
+    "select o_orderpriority, count(*) from orders, lineitem "
+    "where o_orderkey = l_orderkey and l_quantity < 10 "
+    "group by o_orderpriority",
+]
+
+
+@pytest.mark.parametrize("sql", DISTRIBUTED_SQL)
+def test_distributed_on_the_card_equals_the_cpu(dev, sql):
+    """The one-card distributed runner (four workers, PARTITIONED joins,
+    the device exchange) returns the CPU run's rows, as sorted lists;
+    the exchange and the kernel both ran on the card."""
+    from trino_tpu_torch.parallel import DistributedQueryRunner
+    from trino_tpu_torch.parallel.device_exchange import DeviceExchange
+
+    def run(device):
+        s = Session(catalog="tpch", schema="tiny")
+        s.properties["join_distribution_type"] = "PARTITIONED"
+        r = DistributedQueryRunner({"tpch": TpchConnector(page_rows=4096)},
+                                   s, n_workers=4, desired_splits=8,
+                                   device=device)
+        return sorted(r.execute(sql).rows, key=repr)
+
+    want = run("cpu")
+    before = (DeviceExchange.total_collectives, kernels.segment_reduce.launches)
+    assert run(dev) == want
+    assert DeviceExchange.total_collectives > before[0]
+    assert kernels.segment_reduce.launches > before[1]

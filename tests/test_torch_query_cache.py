@@ -343,8 +343,8 @@ def test_cache_counters_via_metrics_and_sql():
 
 
 def test_runner_families_equal_jax():
-    """The runner's families are the JAX engine's, less the exchange and
-    rebalance counters (they come with distribution). Both engines'
+    """The runner's families are the JAX engine's, the exchange and
+    rebalance counters included. Both engines'
     process-wide history stores and profilers start empty, so the
     families that read them are absent from both (on the CPU neither
     engine reports device memory)."""
@@ -358,10 +358,9 @@ def test_runner_families_equal_jax():
     j_profiler.reset()
     p = kv_pair()
     p.execute("select sum(v) s from t")
-    jax_only = {"trino_exchange_splits_total",
-                "trino_writer_rebalances_total"}
-    want = {f["name"] for f in p.j.metrics_families()} - jax_only
-    assert "trino_jit_traces_total" in want
+    want = {f["name"] for f in p.j.metrics_families()}
+    assert {"trino_jit_traces_total", "trino_exchange_splits_total",
+            "trino_writer_rebalances_total"} <= want
     assert {f["name"] for f in p.t.metrics_families()} == want
 
 

@@ -172,7 +172,9 @@ def test_driver_spans_equal_jax():
     """``add_driver_spans`` of both engines over the same finished
     driver: the same operator spans (ids aside), the never-run operator
     left out, cost and exchange attributes carried; the port's own
-    local driver, which stamps no timeline, emits none."""
+    local driver stamps its operators' timeline when it collects stats,
+    so it emits one span per operator that ran, and none without
+    stats."""
 
     def spans_of(mod):
         t = mod.Tracer(process="worker", trace_id="t" * 16)
@@ -199,9 +201,15 @@ def test_driver_spans_equal_jax():
     plan.execute(collect_stats=True)
     local.memory_pool.close()
     t = Tracer(process="coordinator")
+    ran = sum(1 for d in plan.drivers for st in d.stats if st.first_ns)
     with t.span("query") as root:
         assert sum(tracing.add_driver_spans(t, d, root)
-                   for d in plan.drivers) == 0
+                   for d in plan.drivers) == ran
+    assert ran == sum(len(d.stats) for d in plan.drivers)
+    ops = [s for s in t.finished()
+           if s["attrs"].get("span_kind") == "operator"]
+    assert len(ops) == ran and all(s["parent_id"] == root.span_id
+                                   for s in ops)
     assert tracing.add_driver_spans(t, Driver(plan.drivers[0].operators),
                                     root) == 0
 

@@ -9,7 +9,13 @@ programs' first calls are counted (``jit_stats``), and, while the
 program profiler is on, its programs' operations, bytes, compile wall
 and CUDA-event spans ("device ms", see ``telemetry/profiler.py``) are
 attributed to it — the spans read at the end of each call, so under
-profiling an operator's wall includes its device work.
+profiling an operator's wall includes its device work. Each operator's
+first and last active call are stamped (``first_ns``/``last_ns`` on
+``perf_counter_ns``, with the driver's ``epoch_anchor``), which places
+it on a trace timeline (``telemetry.tracing.add_driver_spans``).
+A task of a distributed query runs its drivers a quantum at a time on
+the task executor, parking on ``blocked_tokens`` after a quantum that
+moved nothing.
 """
 
 from __future__ import annotations
@@ -50,6 +56,11 @@ class OperatorStats:
     compile_ms: float = 0.0
     device_ms: float = 0.0
     programs: Set[str] = field(default_factory=set)
+    #: perf_counter_ns of this operator's first/last active call — with
+    #: the driver's ``epoch_anchor`` these place the operator on a trace
+    #: timeline (telemetry.tracing.add_driver_spans)
+    first_ns: int = 0
+    last_ns: int = 0
     #: operator-reported metrics, pulled from ``op.metrics()`` once the
     #: driver finishes
     metrics: Optional[dict] = None
@@ -82,6 +93,23 @@ class OperatorStats:
                 if m.get(k):
                     base += f" {k}={m[k]!r}"
             base += "]"
+        if m.get("adaptive"):
+            # the adaptive partial-agg decision (pass-through or
+            # per-key-range split) — no 'strategy' key on agg ops
+            base += f" [adaptive {m['adaptive']}]"
+        extras = " ".join(
+            f"{k}={m[k]}" for k in ("skew_ratio", "lane_skew_ratio",
+                                    "per_dest", "a2a_retries",
+                                    "sizing", "first_page_ms")
+            if m.get(k) is not None)
+        # split/rebalance/replay counters only when the mechanism
+        # engaged (a zero on every boundary would be noise)
+        extras += "".join(
+            f" {k}={m[k]}" for k in ("splits", "rebalances",
+                                     "reconnects", "replayed_frames")
+            if m.get(k))
+        if extras:
+            base += f" [exchange {extras}]"
         return base
 
 
@@ -101,6 +129,13 @@ class Driver:
         #: device: summed into ``output_rows`` once the driver finished
         #: (one read instead of a synchronise per page)
         self._row_sums: List[List] = [[] for _ in operators]
+        #: whether the most recent process() quantum moved any page —
+        #: tasks only park on blocked tokens after a no-progress quantum
+        self.last_moved = False
+        #: (epoch seconds, perf_counter_ns) at driver creation: converts
+        #: the stats' first_ns/last_ns to wall-clock span timestamps
+        self.epoch_anchor = (time.time(), time.perf_counter_ns()) \
+            if collect_stats else None
 
     def _call(self, idx: int, fn):
         """Run one operator call, attributing its wall time, first calls
@@ -125,8 +160,12 @@ class Driver:
             st.compile_ms += p1[2] - p0[2]
             st.device_ms += d1 - d0
             st.programs.update(profiler.thread_programs())
-        st.wall_ns += time.perf_counter_ns() - t0
+        t1 = time.perf_counter_ns()
+        st.wall_ns += t1 - t0
         st.compile_count += jit_stats.thread_total() - c0
+        if st.first_ns == 0:
+            st.first_ns = t0
+        st.last_ns = t1
         return out
 
     def _count_page(self, idx: int, page):
@@ -161,6 +200,7 @@ class Driver:
             # nothing moved: push finish from the head if it is done
             if ops[0].is_finished() and not ops[0]._finishing:
                 self._call(0, ops[0].finish)
+        self.last_moved = moved
         return ops[-1].is_finished()
 
     def collect_operator_metrics(self):
@@ -182,6 +222,18 @@ class Driver:
             peak = getattr(ctx, "peak", 0) if ctx is not None else 0
             if peak:
                 st.metrics = dict(st.metrics or {}, peak_bytes=peak)
+
+    def blocked_tokens(self) -> List:
+        """Listen tokens of currently-blocked operators. Meaningful
+        after a ``process()`` quantum that made no progress: the task
+        parks on these instead of spinning (reference:
+        Driver.java:380-486 blocked-future handling)."""
+        toks = []
+        for op in self.operators:
+            t = op.blocked_token()
+            if t is not None:
+                toks.append(t)
+        return toks
 
     def run_to_completion(self, max_quanta: int = 1_000_000):
         for _ in range(max_quanta):

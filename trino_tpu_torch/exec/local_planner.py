@@ -9,8 +9,12 @@ dynamic filters), Values, Filter, Project, Unnest, Aggregation, Distinct,
 Join (sorted-index and matmul strategies), cross join, the set operations
 (UNION [ALL], INTERSECT, EXCEPT), EnforceSingleRow (scalar subqueries),
 Sort, TopN, TopNRanking (grouped top-N), Window, Limit/Offset, Output
-and TableWriter (CTAS and INSERT). Remote sources (distribution) raise
-NOT_SUPPORTED.
+and TableWriter (CTAS and INSERT), and, for the fragments of a
+distributed plan (``parallel/distributed.py``), RemoteSource: an
+exchange source (host buffer or device exchange) or the k-way merge
+behind a distributed ORDER BY. A planner built for task ``task_id`` of
+``task_count`` takes every ``task_count``-th table split; a partial
+aggregation seeds its adaptive pass-through verdict from history.
 Union inputs and join build sides run as pipelines before their
 consumers, in list order, as in the JAX engine.
 """
@@ -24,7 +28,9 @@ from .. import types as T
 from ..block import Page
 from ..expr.compiler import PageProcessor
 from ..expr.ir import Call, InputRef, Literal, RowExpression
-from ..ops.aggregation import AggCall, HashAggregationOperator
+from ..ops.aggregation import (ADAPTIVE_KEY_BUCKETS, ADAPTIVE_MIN_ROWS,
+                               ADAPTIVE_RATIO_THRESHOLD, AggCall,
+                               HashAggregationOperator)
 from ..ops.join import HashBuilderOperator, JoinBridge, LookupJoinOperator
 from ..ops.matmul_join import MatmulJoinOperator
 from ..ops.operator import (DeferredPagesSourceOperator,
@@ -54,6 +60,34 @@ def create_table_idempotent(conn, schema: str, table: str, columns):
         if e.code != "TABLE_ALREADY_EXISTS":
             raise
         return conn.metadata().get_table_handle(schema, table)
+
+
+def grouping_options(props: Dict) -> Dict:
+    """LocalExecutionPlanner grouping/kernel kwargs from a raw
+    session-properties mapping, with registered defaults applied — the
+    ONE place the property names map to planner knobs (every runner
+    builds its planners through this, so the sites cannot drift)."""
+    from .. import session_properties as SP
+
+    return {
+        "hash_grouping": SP.prop_value(props, "hash_grouping_enabled"),
+        "adaptive_partial_agg": SP.prop_value(
+            props, "adaptive_partial_aggregation_enabled"),
+        "adaptive_partial_ratio": SP.prop_value(
+            props,
+            "adaptive_partial_aggregation_unique_rows_ratio_threshold"),
+        "adaptive_partial_min_rows": SP.prop_value(
+            props, "adaptive_partial_aggregation_min_rows"),
+        "adaptive_partial_buckets": SP.prop_value(
+            props, "adaptive_partial_aggregation_key_range_buckets"),
+        "matmul_max_key_range": SP.prop_value(
+            props, "matmul_join_max_key_range"),
+        "hybrid_join": SP.prop_value(props, "hybrid_join_enabled"),
+        "hybrid_join_fanout": SP.prop_value(
+            props, "hybrid_join_fanout"),
+        "hybrid_join_max_depth": SP.prop_value(
+            props, "hybrid_join_max_depth"),
+    }
 
 
 class PhysicalPipeline:
@@ -96,12 +130,22 @@ class LocalExecutionPlan:
 
 
 class LocalExecutionPlanner:
-    """Builds the operators of one plan on ``device``."""
+    """Builds the operators of one plan on ``device``.
+    ``task_id``/``task_count`` assign a subset of table splits to this
+    task (reference: split assignment in SqlTaskExecution);
+    ``exchange_reader(fragment_id, kind) -> thunk`` resolves
+    RemoteSourceNodes to upstream fragment output pages."""
 
     def __init__(self, metadata: Metadata, device, desired_splits: int = 4,
+                 task_id: int = 0, task_count: int = 1,
+                 exchange_reader=None,
                  memory_pool=None, join_max_lanes: Optional[int] = None,
                  dynamic_filtering: bool = True,
                  hash_grouping: bool = True,
+                 adaptive_partial_agg: bool = True,
+                 adaptive_partial_ratio: float = ADAPTIVE_RATIO_THRESHOLD,
+                 adaptive_partial_min_rows: int = ADAPTIVE_MIN_ROWS,
+                 adaptive_partial_buckets: int = ADAPTIVE_KEY_BUCKETS,
                  scan_coalesce: bool = True,
                  matmul_max_key_range: int = 1024,
                  hybrid_join: bool = True,
@@ -112,12 +156,19 @@ class LocalExecutionPlanner:
         self.metadata = metadata
         self.device = device
         self.desired_splits = desired_splits
+        self.task_id = task_id
+        self.task_count = task_count
+        self.exchange_reader = exchange_reader
         self.memory_pool = memory_pool
         self.join_max_lanes = join_max_lanes
         self.dynamic_filtering = dynamic_filtering
         #: GROUP BY path: vectorized open-addressing hash table (default)
         #: vs sort-based oracle (``hash_grouping_enabled`` session prop)
         self.hash_grouping = hash_grouping
+        self.adaptive_partial_agg = adaptive_partial_agg
+        self.adaptive_partial_ratio = adaptive_partial_ratio
+        self.adaptive_partial_min_rows = adaptive_partial_min_rows
+        self.adaptive_partial_buckets = adaptive_partial_buckets
         #: coalesce split-tail scan pages up to the connector page size
         #: before device upload (``scan_coalesce_enabled``)
         self.scan_coalesce = scan_coalesce
@@ -140,8 +191,9 @@ class LocalExecutionPlanner:
         #: history-based statistics binding
         #: (telemetry.stats_store.HboContext): when set, every plan
         #: node's realizing operator is tagged with its canonical
-        #: fingerprint (actuals recording) and hybrid join builds size
-        #: their fan-out from the node's recorded spill
+        #: fingerprint (actuals recording), hybrid join builds size
+        #: their fan-out from the node's recorded spill and partial
+        #: aggregations seed their adaptive verdicts from history
         self.hbo = hbo
         #: template-parameter bindings: GLOBAL literal-slot index -> raw
         #: scalar. A template plan's IR carries opaque ParamRefs; this
@@ -252,9 +304,11 @@ class LocalExecutionPlanner:
                                      conn, "page_rows", None)
                                  if self.scan_coalesce else None,
                                  progress=self.progress)
-        for split in conn.split_manager().get_splits(node.table,
-                                                     self.desired_splits):
-            scan.add_split(split)
+        splits = conn.split_manager().get_splits(node.table,
+                                                 self.desired_splits)
+        for i, split in enumerate(splits):
+            if i % self.task_count == self.task_id:
+                scan.add_split(split)
         scan.no_more_splits()
         layout = {s.name: i for i, (s, _) in enumerate(node.assignments)}
         types_ = [s.type for s, _ in node.assignments]
@@ -436,10 +490,22 @@ class LocalExecutionPlanner:
                 ops.append(self._fp_operator(types_, proj))
                 types_ = [types_[c] for c in want]
                 group_channels = list(range(len(node.group_keys)))
+        seed = None
+        if self.hbo is not None and node.step == "partial":
+            # seed the adaptive partial-agg verdict from recorded
+            # history: a repeat statement skips the observation window
+            # and lands directly on the per-key-range decision its
+            # last runs converged to (results unchanged either way)
+            seed = self.hbo.adaptive_seed(self.hbo.fp(node))
         ops.append(HashAggregationOperator(
             types_, group_channels, aggs, self.device, step=node.step,
             memory_context=self._mem_ctx("agg"),
-            hash_grouping=self.hash_grouping))
+            hash_grouping=self.hash_grouping,
+            adaptive_partial=self.adaptive_partial_agg,
+            adaptive_ratio=self.adaptive_partial_ratio,
+            adaptive_min_rows=self.adaptive_partial_min_rows,
+            adaptive_key_buckets=self.adaptive_partial_buckets,
+            adaptive_seed=seed))
         new_layout = {}
         out_types = []
         for i, s in enumerate(node.group_keys):
@@ -576,6 +642,34 @@ class LocalExecutionPlanner:
                                        self.device))
         return ops, {node.rows_symbol.name: 0}, [T.BIGINT]
 
+    def _v_RemoteSourceNode(self, node):
+        if self.exchange_reader is None:
+            raise TrinoError(
+                "remote source outside distributed execution",
+                "NOT_SUPPORTED")
+        types_ = [s.type for s in node.symbols]
+        layout = {s.name: i for i, s in enumerate(node.symbols)}
+        if node.kind == "merge":
+            # order-preserving gather: one stream per producer task,
+            # k-way merged under the exchange's orderings
+            from ..ops.merge_exchange import MergeExchangeSourceOperator
+
+            streams = self.exchange_reader(node.fragment_id, "merge")
+            keys = _sort_keys(node.orderings or [], layout)
+            return [MergeExchangeSourceOperator(streams, types_, keys,
+                                                self.device)], \
+                layout, types_
+        thunk = self.exchange_reader(node.fragment_id, node.kind)
+        from ..ops.output import ExchangeSourceOperator
+
+        # source_fragment tags the operator's exchange metrics (skew
+        # ratio, per_dest, retries) with the PRODUCING fragment, so
+        # EXPLAIN ANALYZE attributes a boundary's stats unambiguously
+        # when a stage consumes several remote sources (joins)
+        source = ExchangeSourceOperator(thunk, types_, self.device,
+                                        source_fragment=node.fragment_id)
+        return [source], layout, types_
+
     def _v_IntersectNode(self, node: IntersectNode):
         return self._set_semantics_join(node, "semi")
 
@@ -645,3 +739,19 @@ def _eval_literal(e: RowExpression):
         return None if v is None else -v
     raise TrinoError(f"VALUES rows must be literals, got {e!r}",
                      "NOT_SUPPORTED")
+
+
+def project_to_wire_layout(frag, ops, layout, types_):
+    """Append the projection fixing a fragment's WIRE layout: consumers
+    map RemoteSourceNode symbols positionally, so the output operator
+    must see output_symbols order exactly.
+    Returns (ops, layout, types_, key_channels)."""
+    out_syms = frag.output_symbols
+    want = [layout[s.name] for s in out_syms]
+    if want != list(range(len(types_))):
+        proj = [InputRef(types_[c], c) for c in want]
+        ops.append(FilterProjectOperator(PageProcessor(types_, proj)))
+        types_ = [types_[c] for c in want]
+        layout = {s.name: i for i, s in enumerate(out_syms)}
+    key_channels = [layout[s.name] for s in frag.output_keys]
+    return ops, layout, types_, key_channels

@@ -25,7 +25,8 @@ when ``spill_to_disk_enabled``.
 A parked page remembers the device it came from and goes back there, so a
 runner on ``cuda:1`` reloads onto ``cuda:1``, not the default device. The
 node-wide pool shared by concurrent queries (and the memory killer on top
-of it) comes with distribution.
+of it) comes with the multi-process runner; the one-card distributed
+runner gives all tasks of a query one pool.
 
 Locking: the pool lock and context locks are never held together —
 revoke callbacks run under the victim context's lock only, and pool

@@ -6,7 +6,8 @@ in a compressed, checksummed frame). This is the JAX engine's spill frame
 writes the same bytes in both engines: dtype-tagged raw buffers of the
 page's columns, null masks and valid mask, zlib level 1, CRC-32 over the
 compressed body, written atomically. The exchange page serde of that
-module comes with distribution.
+module comes with the multi-process runner (the one-card distributed
+runner hands pages between its tasks in memory).
 """
 
 from __future__ import annotations

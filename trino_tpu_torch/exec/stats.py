@@ -5,7 +5,9 @@ Reference analog: ``execution/QueryStats.java`` / ``StageInfo`` /
 aggregates from task status updates and serves on ``/v1/query/{id}``
 and through EXPLAIN ANALYZE.
 
-The JAX engine's ``trino_tpu/exec/stats.py``, copied.
+The JAX engine's ``trino_tpu/exec/stats.py``, with the torch engine's
+operator fields (the programs' CUDA-event device ms and program names)
+summed across a stage's tasks and carried into the task dicts.
 """
 
 from __future__ import annotations
@@ -46,6 +48,9 @@ class TaskStatsTree:
                      "device_bytes": o.device_bytes,
                      "compile_ms": round(o.compile_ms, 2)}
                     if (o.flops or o.compile_ms) else {}),
+                 **({"device_ms": round(o.device_ms, 3),
+                     "programs": sorted(o.programs)}
+                    if o.programs else {}),
                  **({"exchange": o.metrics} if o.metrics else {})}
                 for o in self.operators],
         }
@@ -235,6 +240,8 @@ class QueryStatsTree:
                                                flops=o.flops,
                                                device_bytes=o.device_bytes,
                                                compile_ms=o.compile_ms,
+                                               device_ms=o.device_ms,
+                                               programs=set(o.programs),
                                                metrics=o.metrics,
                                                node_fp=o.node_fp)
                     else:
@@ -245,6 +252,8 @@ class QueryStatsTree:
                         a.flops += o.flops
                         a.device_bytes += o.device_bytes
                         a.compile_ms += o.compile_ms
+                        a.device_ms += o.device_ms
+                        a.programs |= o.programs
                         # exchange metrics describe the ONE shared
                         # boundary object; every task reports the same
                         # dict, so keep the first

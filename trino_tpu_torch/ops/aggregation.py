@@ -24,8 +24,26 @@ Streaming: each input page is partially aggregated on the device
 (bounded output = its own row count), partials accumulate; ``finish``
 re-groups the concatenated partials and applies final projections.
 
-Adaptive partial aggregation (the JAX engine's pass-through switch for
-``step="partial"``) is not ported yet: a partial step always aggregates.
+**Adaptive partial aggregation** (reference:
+``adaptive_partial_aggregation_enabled``; "Partial Partial Aggregates",
+PAPERS.md): a partial-step operator observes its groups-to-rows
+reduction ratio; once enough rows show grouping is not reducing
+(ratio above threshold), it stops aggregating and passes pages through
+in the intermediate keys+states layout — the final step re-groups, so
+results are unchanged while the partial stops burning time on
+high-cardinality keys.
+
+**Per-key-range decision**: the observation window tracks the
+reduction ratio PER KEY-RANGE BUCKET (the hashed key space split into
+``adaptive_key_buckets`` ranges), and the pass-through switch flips per
+bucket — a skewed stream keeps aggregating its hot (duplicate-heavy)
+ranges while cold (mostly-unique) ranges pass through ungrouped. A
+decided split emits two pages per input page (the aggregated hot-range
+partial + the cold-range pass-through), both in the intermediate layout
+the final step re-groups anyway. The bucket of a row is the unsigned
+remainder of the grouping hash, as in the JAX engine, so both engines
+decide alike. A partial step's page calls and a final step's merge
+reduce through ``segment_reduce_columns`` as the single step does.
 """
 
 from __future__ import annotations
@@ -40,16 +58,20 @@ from .. import types as T
 from ..block import DevicePage, Dictionary, padded_size, storage_dtype
 from ..types import TypeError_
 from .hashtable import hash_group_ids, hash_segment_reduce, \
-    hashable_key_types
+    hashable_key_types, mix_operands, umod
 from .kernels import segment_reduce_columns
 from ..telemetry.profiler import instrument
 from .operator import Operator
 from .sortkeys import group_operands, lexsort_indices
 
-#: adaptive partial aggregation defaults (the session registry re-exports
-#: them); the torch engine does not act on them yet
+#: adaptive partial aggregation: minimum observed input rows before the
+#: reduction ratio is trusted (reference default: 100k rows)
 ADAPTIVE_MIN_ROWS = 100_000
+#: groups/rows ratio above which the partial step stops aggregating
 ADAPTIVE_RATIO_THRESHOLD = 0.9
+#: key-range buckets the pass-through decision is made over (1 = one
+#: global per-stream decision; ``adaptive_partial_aggregation_key_
+#: range_buckets``)
 ADAPTIVE_KEY_BUCKETS = 8
 
 
@@ -368,6 +390,51 @@ group_reduce = instrument("sort_group_reduce", group_reduce,
                           static_argnames=("kinds",))
 
 
+def _key_buckets(key_ops: Sequence, n: int, device,
+                 buckets: int) -> torch.Tensor:
+    """Key-range bucket of every row: the unsigned remainder of the
+    grouping hash, so a key's rows land in the same bucket on every
+    page."""
+    return umod(mix_operands(key_ops, n, device), buckets).to(torch.int64)
+
+
+def _bucket_reduction_stats(key_ops: Sequence, valid, group_rows,
+                            ngroups: int, buckets: int) -> torch.Tensor:
+    """(2, buckets) per-key-range observation of one page: row 0 =
+    live rows per bucket, row 1 = groups (leader rows) per bucket.
+    Sums across axis 1 give the page totals, so this is the ONE host
+    fetch the adaptive window pays per observed page."""
+    cap = valid.shape[0]
+    device = valid.device
+    b = _key_buckets(key_ops, cap, device, buckets)
+    rows = torch.bincount(torch.where(valid, b, buckets),
+                          minlength=buckets + 1)
+    leader = torch.arange(cap, device=device) < ngroups
+    lb = b[group_rows.to(torch.int64)]
+    groups = torch.bincount(torch.where(leader, lb, buckets),
+                            minlength=buckets + 1)
+    return torch.stack([rows[:buckets], groups[:buckets]]).to(torch.int32)
+
+
+_bucket_reduction_stats = instrument(
+    "agg_bucket_stats", _bucket_reduction_stats,
+    static_argnames=("buckets",))
+
+
+def _key_range_pass_mask(key_ops: Sequence, pass_buckets,
+                         buckets: int) -> torch.Tensor:
+    """Per-row pass-through mask from the decided per-bucket verdicts
+    (same stable hash as ``_bucket_reduction_stats``)."""
+    n = key_ops[0].shape[0]
+    return pass_buckets[_key_buckets(key_ops, n, key_ops[0].device,
+                                     buckets)]
+
+
+_key_range_pass_mask = instrument(
+    "agg_key_range_mask", _key_range_pass_mask,
+    static_argnames=("buckets",))
+
+
 class HashAggregationOperator(Operator):
     """GROUP BY over device batches (see module docstring).
 
@@ -380,7 +447,12 @@ class HashAggregationOperator(Operator):
                  group_channels: Sequence[int],
                  aggregates: Sequence[AggCall], device,
                  step: str = "single", memory_context=None,
-                 hash_grouping: bool = True):
+                 hash_grouping: bool = True,
+                 adaptive_partial: bool = True,
+                 adaptive_ratio: float = ADAPTIVE_RATIO_THRESHOLD,
+                 adaptive_min_rows: int = ADAPTIVE_MIN_ROWS,
+                 adaptive_key_buckets: int = ADAPTIVE_KEY_BUCKETS,
+                 adaptive_seed: Optional[dict] = None):
         assert step in ("single", "partial", "final")
         #: where the empty-input page is built (input pages carry their
         #: own device)
@@ -390,8 +462,28 @@ class HashAggregationOperator(Operator):
         self.aggregates = list(aggregates)
         self.step = step
         self.hash_grouping = hash_grouping
+        self.adaptive_partial = adaptive_partial and step == "partial"
+        self.adaptive_ratio = adaptive_ratio
+        self.adaptive_min_rows = adaptive_min_rows
+        self.adaptive_key_buckets = max(1, int(adaptive_key_buckets)) \
+            if group_channels else 1
+        #: adaptive observation window (hash path only: the group count
+        #: is already on the host from the insert's round loop)
+        self._adaptive_rows = 0
+        self._adaptive_groups = 0
+        self._adaptive_decided = False
+        #: per-key-range (2, buckets) accumulated [rows, groups]
+        self._bucket_stats = np.zeros((2, self.adaptive_key_buckets),
+                                      dtype=np.int64)
+        #: True once the partial step switched to pass-through
+        self.passthrough = False
+        #: per-bucket verdicts when the decision SPLIT the key space
+        #: (device bool (buckets,)); None = no split decided
+        self._pass_buckets = None
+        self._pending: List[DevicePage] = []  # pass-through output queue
         #: pages grouped per path, for EXPLAIN/observability
-        self.path_counts = {"hash": 0, "sort": 0}
+        self.path_counts = {"hash": 0, "sort": 0, "passthrough": 0,
+                            "range_split": 0}
         self._partials: List = []  # DevicePage | SpilledPage entries
         self._emitted = False
         self._done = False
@@ -408,9 +500,35 @@ class HashAggregationOperator(Operator):
         self._state_dicts: List = [None] * len(self._str_state)
         #: (pool uid, size) -> (rank LUT, inverse LUT), per operator
         self._rank_cache: dict = {}
+        #: where the adaptive verdict came from: "observed" (this run's
+        #: window decided) or "hbo" (seeded from recorded history)
+        self._adaptive_source = "observed"
+        if adaptive_seed and self.adaptive_partial:
+            self._apply_adaptive_seed(adaptive_seed)
         self._ctx = memory_context
         if self._ctx is not None:
             self._ctx.set_revoke_callback(self._revoke)
+
+    def _apply_adaptive_seed(self, seed: dict):
+        """Pre-decide the adaptive window from a recorded verdict
+        (history-based statistics): pass-through/aggregate apply
+        directly; a range-split verdict applies only when the bucket
+        count matches the recording (a re-tuned bucket knob re-runs
+        the observation window instead of misapplying a stale mask)."""
+        verdict = seed.get("verdict")
+        if verdict == "passthrough":
+            self.passthrough = True
+        elif verdict == "range-split":
+            mask = seed.get("pass_buckets")
+            if not mask or len(mask) != self.adaptive_key_buckets:
+                return
+            self._pass_buckets = torch.tensor(
+                [bool(b) for b in mask], dtype=torch.bool,
+                device=self.device)
+        elif verdict != "aggregate":
+            return
+        self._adaptive_decided = True
+        self._adaptive_source = "hbo"
 
     # output layout: group key columns, then state/final columns per agg
     @property
@@ -451,7 +569,32 @@ class HashAggregationOperator(Operator):
                                 "across pages; exchange must unify pools")
                         self._state_dicts[k] = d
                 k += 1
-        partial = self._aggregate_page(page, intermediate=intermediate)
+        if self.passthrough:
+            # adaptive partial aggregation tripped: emit the page in the
+            # intermediate keys+states layout without grouping at all
+            self.path_counts["passthrough"] += 1
+            self._pending.append(self._passthrough_page(page))
+            return
+        key_operands = None
+        if self._pass_buckets is not None:
+            # per-key-range split: cold (mostly-unique) ranges pass
+            # through ungrouped, hot ranges keep aggregating — the
+            # final step re-groups both, so results are unchanged.
+            # The grouping operands feed both the mask and the
+            # aggregation below (they don't depend on validity), so
+            # compute them once.
+            self.path_counts["range_split"] += 1
+            key_types = [self.input_types[c] for c in self.group_channels]
+            key_operands = self._grouping_operands(
+                page, self.group_channels, key_types)
+            mask = _key_range_pass_mask(tuple(key_operands[0]),
+                                        self._pass_buckets,
+                                        self.adaptive_key_buckets)
+            self._pending.append(self._passthrough_page(
+                _masked_page(page, page.valid & mask)))
+            page = _masked_page(page, page.valid & ~mask)
+        partial = self._aggregate_page(page, intermediate=intermediate,
+                                       key_operands=key_operands)
         if self._ctx is None:
             self._partials.append(partial)
             return
@@ -467,12 +610,14 @@ class HashAggregationOperator(Operator):
 
         return spill_pages(self._partials, self._ctx.pool, self._ctx.lock)
 
-    def _aggregate_page(self, page: DevicePage,
-                        intermediate: bool) -> DevicePage:
+    def _aggregate_page(self, page: DevicePage, intermediate: bool,
+                        key_operands=None) -> DevicePage:
         """intermediate=False: page is raw input rows (layout:
         self.input_types, keys at self.group_channels).
         intermediate=True: page is partial-agg output (layout:
-        _intermediate_types — keys at channels [0..nkeys), then states)."""
+        _intermediate_types — keys at channels [0..nkeys), then states).
+        ``key_operands``: precomputed (key_ops, key_raws) from the
+        range-split path (raw layout only) — skips recomputing them."""
         nkeys = len(self.group_channels)
         if intermediate:
             key_channels = list(range(nkeys))
@@ -480,8 +625,11 @@ class HashAggregationOperator(Operator):
         else:
             key_channels = self.group_channels
             key_types = [self.input_types[c] for c in self.group_channels]
-        key_ops, key_raws = self._grouping_operands(page, key_channels,
-                                                    key_types)
+        if key_operands is not None:
+            key_ops, key_raws = key_operands
+        else:
+            key_ops, key_raws = self._grouping_operands(
+                page, key_channels, key_types)
 
         state_cols: List = []
         if intermediate:
@@ -503,7 +651,8 @@ class HashAggregationOperator(Operator):
         result = None
         if self.hash_grouping and hashable_key_types(key_types):
             result = self._hash_group_page(page, key_ops, key_raws,
-                                           key_channels, state_cols)
+                                           key_channels, state_cols,
+                                           observe=not intermediate)
         if result is None:
             self.path_counts["sort"] += 1
             result = group_reduce(key_ops, key_raws, state_cols,
@@ -545,13 +694,18 @@ class HashAggregationOperator(Operator):
         return key_ops, key_raws
 
     def _hash_group_page(self, page: DevicePage, key_ops, key_raws,
-                         key_channels, state_cols):
+                         key_channels, state_cols, observe: bool):
         """Hash-path grouping of one page; None => the caller falls
         back to the sort oracle (probe-budget overflow)."""
+        exact = self.step != "partial"
         gid, group_rows, ngroups, overflow = hash_group_ids(
-            key_ops, page.valid, exact=self.step != "partial")
+            key_ops, page.valid, exact=exact)
         if overflow:
             return None
+        if not exact and observe and self.adaptive_partial \
+                and not self._adaptive_decided:
+            self._observe_reduction(key_ops, page.valid, group_rows,
+                                    ngroups)
         key_nulls = tuple(page.nulls[c] for c in key_channels)
         self.path_counts["hash"] += 1
         return hash_segment_reduce(gid, group_rows, ngroups,
@@ -571,6 +725,56 @@ class HashAggregationOperator(Operator):
                 state_cols[k] = _lut(inv, r.device)[r]
         return state_cols
 
+    def _observe_reduction(self, key_ops, valid, group_rows, ngroups):
+        """Accumulate the groups/rows ratio PER KEY-RANGE BUCKET; once
+        enough rows are observed, flip pass-through per bucket: all
+        buckets non-reducing -> whole-stream pass-through (the classic
+        switch), a mix -> range split (reference: adaptive partial
+        aggregation; "Partial Partial Aggregates", PAPERS.md)."""
+        stats = _bucket_reduction_stats(
+            tuple(key_ops), valid, group_rows, ngroups,
+            self.adaptive_key_buckets).cpu().numpy().astype(np.int64)
+        self._bucket_stats += stats
+        self._adaptive_rows += int(stats[0].sum())
+        self._adaptive_groups += int(stats[1].sum())
+        if self._adaptive_rows < self.adaptive_min_rows:
+            return
+        self._adaptive_decided = True
+        rows_b, groups_b = self._bucket_stats
+        b = self.adaptive_key_buckets
+        # a bucket flips only with its share of the evidence: a range
+        # barely seen keeps aggregating (the safe default)
+        evid = rows_b >= max(1, self.adaptive_min_rows // (2 * b))
+        ratios = groups_b / np.maximum(rows_b, 1)
+        pass_b = evid & (ratios > self.adaptive_ratio)
+        if pass_b.all():
+            self.passthrough = True
+        elif pass_b.any():
+            self._pass_buckets = torch.from_numpy(pass_b).to(valid.device)
+
+    def _passthrough_page(self, page: DevicePage) -> DevicePage:
+        """Raw input page -> intermediate keys+states layout, ungrouped
+        (every row its own group; the final step re-groups, so results
+        are unchanged — partial aggregation is only a reduction)."""
+        state_cols: List = []
+        for a in self.aggregates:
+            state_cols.extend(_init_states(a, page.cols, page.nulls,
+                                           page.valid, page.dictionaries,
+                                           self._rank_cache))
+        # string min/max states travel as CODES (same wire contract as
+        # the reduced path): map rank values back through the pool
+        state_cols = self._states_rank_to_code(state_cols)
+        cols = [page.cols[c] for c in self.group_channels]
+        nulls = [page.nulls[c] for c in self.group_channels]
+        no_nulls = torch.zeros(page.capacity, dtype=torch.bool,
+                               device=page.device)
+        for s in state_cols:
+            cols.append(s)
+            nulls.append(no_nulls)
+        dicts = list(self._group_dicts) + self._state_dict_tail()
+        return DevicePage(self._intermediate_types(), cols, nulls,
+                          page.valid, dicts)
+
     def _intermediate_types(self) -> List[T.Type]:
         keys = [self.input_types[c] for c in self.group_channels]
         states: List[T.Type] = []
@@ -579,6 +783,8 @@ class HashAggregationOperator(Operator):
         return keys + states
 
     def get_output(self) -> Optional[DevicePage]:
+        if self._pending:
+            return self._pending.pop(0)
         if not self._finishing or self._emitted:
             return None
         self._emitted = True
@@ -731,12 +937,43 @@ class HashAggregationOperator(Operator):
                 for k in range(len(self._str_state))]
 
     def metrics(self) -> dict:
-        """Grouping-path observability: pages per path."""
-        return {"grouping_paths": {k: v for k, v in
-                                   self.path_counts.items() if v}}
+        """Grouping-path observability for EXPLAIN ANALYZE: pages per
+        path and, once the adaptive window decided, what it decided
+        (whole-stream pass-through vs the per-key-range split)."""
+        out = {"grouping_paths": {k: v for k, v in
+                                  self.path_counts.items() if v}}
+        seeded = " (seeded by hbo)" \
+            if self._adaptive_source == "hbo" else ""
+        pass_buckets = self._pass_buckets.tolist() \
+            if self._pass_buckets is not None else None
+        if self.passthrough:
+            out["adaptive"] = "passthrough" + seeded
+        elif pass_buckets is not None:
+            out["adaptive"] = (
+                f"range-split {sum(pass_buckets)}/"
+                f"{self.adaptive_key_buckets} buckets pass through"
+                + seeded)
+        if self.adaptive_partial and self._adaptive_decided:
+            # the decided verdict, machine-readable: history-based
+            # statistics store it and seed the next run's operator
+            if self.passthrough:
+                verdict: dict = {"verdict": "passthrough"}
+            elif pass_buckets is not None:
+                verdict = {"verdict": "range-split",
+                           "pass_buckets": [int(b) for b in pass_buckets]}
+            else:
+                verdict = {"verdict": "aggregate"}
+            out["adaptive_verdict"] = verdict
+        return out
 
     def is_finished(self) -> bool:
         return self._done
+
+
+def _masked_page(page: DevicePage, valid) -> DevicePage:
+    """The same page under a different validity mask (columns shared)."""
+    return DevicePage(page.types, page.cols, page.nulls, valid,
+                      page.dictionaries)
 
 
 def _pad_to(arr, cap: int):

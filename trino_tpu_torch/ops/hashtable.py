@@ -67,6 +67,15 @@ def _shr(x: torch.Tensor, k: int) -> torch.Tensor:
     return (x >> k) & ((1 << (64 - k)) - 1)
 
 
+def umod(x: torch.Tensor, m: int) -> torch.Tensor:
+    """Unsigned remainder of int64 lanes read as uint64, for 0 < m <
+    2**31: a negative lane is ``x + 2**64``, so its remainder adds
+    ``2**64 mod m`` to the floored remainder of ``x`` (an int64 ``%``
+    alone gives such a lane another remainder, silently)."""
+    r = torch.remainder(x, m)
+    return torch.where(x < 0, torch.remainder(r + (1 << 64) % m, m), r)
+
+
 def splitmix64(x: torch.Tensor) -> torch.Tensor:
     """The splitmix64 finalizer over int64 lanes holding uint64 bits."""
     x = x + _M3

@@ -1140,25 +1140,34 @@ class LookupJoinOperator(Operator):
         expansions fit the lane budget; greedy contiguous row chunks
         from the per-row counts (host copy only on this over-budget
         path). A single row exceeding the budget still becomes its own
-        unit: its lane capacity grows to its fan-out."""
+        unit: its lane capacity grows to its fan-out.
+
+        The JAX engine's greedy row loop, cut by binary searches over
+        the counts' prefix sums: a row joins the unit while the unit's
+        padded lane count stays within the budget, i.e. while its count
+        stays within the largest power of two not above it — the same
+        units, one search per unit instead of Python work per row (a
+        device exchange hands a consumer a whole slab of millions of
+        lanes)."""
         page, pkey_cols, pusable = rec["page"], rec["pkey_cols"], \
             rec["pusable"]
         lo, count = rec["lo"], rec["count"]
         if padded_size(max(total, 16)) <= self.max_lanes:
             return [(page, pkey_cols, pusable, lo, count,
                      padded_size(max(total, 16)))]
-        counts = count.cpu().numpy()
+        counts = count.cpu().numpy().astype(np.int64)
+        # padded_size(max(x, 16)) <= max_lanes  <=>  x <= limit
+        limit = 1 << (self.max_lanes.bit_length() - 1) \
+            if self.max_lanes >= 16 else -1
+        prefix = np.concatenate([[0], np.cumsum(counts)])
         units: List = []
         n = counts.shape[0]
         i = 0
         while i < n:
-            j = i
-            run = 0
-            while j < n and (j == i or
-                             padded_size(max(run + int(counts[j]), 16))
-                             <= self.max_lanes):
-                run += int(counts[j])
-                j += 1
+            j = int(np.searchsorted(prefix, prefix[i] + limit,
+                                    side="right")) - 1
+            j = min(max(j, i + 1), n)
+            run = int(prefix[j] - prefix[i])
             cap = padded_size(j - i)
             sl = slice(i, j)
             sub = DevicePage(page.types,

@@ -40,6 +40,13 @@ class Operator:
     def is_finished(self) -> bool:
         raise NotImplementedError
 
+    def blocked_token(self):
+        """Non-None when the operator cannot progress until an external
+        event fires; the token's ``on_ready(cb)`` re-schedules the
+        parked task (reference: Operator.java isBlocked returning a
+        ListenableFuture)."""
+        return None
+
     _finishing = False
 
 

@@ -44,7 +44,7 @@ import torch
 
 from . import types as T
 from .connectors.spi import Connector
-from .exec.local_planner import LocalExecutionPlanner
+from .exec.local_planner import LocalExecutionPlanner, grouping_options
 from .planner.logical_planner import LogicalPlanner, Metadata
 from .planner.optimizer import optimize
 from .planner.plan import OutputNode, plan_tree_str
@@ -1203,16 +1203,10 @@ class LocalQueryRunner:
             join_max_lanes=SP.value(self.session, "join_max_expand_lanes"),
             dynamic_filtering=SP.value(self.session,
                                        "enable_dynamic_filtering"),
-            hash_grouping=SP.value(self.session, "hash_grouping_enabled"),
             scan_coalesce=SP.value(self.session, "scan_coalesce_enabled"),
-            matmul_max_key_range=SP.value(self.session,
-                                          "matmul_join_max_key_range"),
-            hybrid_join=SP.value(self.session, "hybrid_join_enabled"),
-            hybrid_join_fanout=SP.value(self.session, "hybrid_join_fanout"),
-            hybrid_join_max_depth=SP.value(self.session,
-                                           "hybrid_join_max_depth"),
             processor_cache=processor_cache, progress=progress,
-            hbo=hbo, params=params)
+            hbo=hbo, params=params,
+            **grouping_options(self.session.properties))
 
 
 def _operator_metrics(drivers) -> List[dict]:

@@ -20,9 +20,7 @@ Histogram sample values are ``{"count": n, "sum": s,
 "buckets": [[le, cumulative_count], ...]}``.
 
 The JAX engine's ``trino_tpu/telemetry/metrics.py``, copied.
-``process_families`` exports every family of the JAX engine's that has
-a counterpart in the torch engine; the device-exchange and
-writer-rebalance counters come with distribution.
+``process_families`` exports every family of the JAX engine's.
 """
 
 from __future__ import annotations
@@ -237,6 +235,7 @@ def process_families(tasks: Optional[int] = None,
                      memory: Optional[dict] = None) -> List[dict]:
     """Metric families every engine process exports: program first-call
     counters (``trino_jit_traces_total``, see ``jit_stats``), the
+    exchange's split and the writer rebalancer's process counters, the
     program profiler's totals and the card's memory once used, the
     history-store families, and — when provided — the node memory-pool
     snapshot and the running-task count.  ``memory`` must be the SAME
@@ -253,6 +252,17 @@ def process_families(tasks: Optional[int] = None,
         jit.inc(n, kernel=kernel)
     if not traces:
         jit.inc(0)
+    from ..parallel.device_exchange import DeviceExchange
+    from ..parallel.rebalancer import UniformPartitionRebalancer
+
+    reg.counter(
+        "trino_exchange_splits_total",
+        "Hot partitions split across receiver lanes by the device "
+        "exchange").inc(DeviceExchange.total_splits)
+    reg.counter(
+        "trino_writer_rebalances_total",
+        "Scaled-writer partition->lane reassignments").inc(
+            UniformPartitionRebalancer.total_rebalances)
     if tasks is not None:
         reg.gauge("trino_worker_tasks",
                   "Tasks currently tracked by this process").set(tasks)

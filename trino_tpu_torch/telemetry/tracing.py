@@ -17,10 +17,11 @@ Clock model: span ``start`` is epoch seconds (``time.time()`` — the only
 clock that aligns across processes on one host) and duration is measured
 on ``perf_counter`` so short spans keep sub-ms resolution.
 
-The JAX engine's ``trino_tpu/telemetry/tracing.py``, copied. The torch
-engine runs one process on one device, so no producer opens stage or
-task spans yet; the slow-query record and the span analysis are used as
-they are.
+The JAX engine's ``trino_tpu/telemetry/tracing.py``, copied. Its span
+producers in the torch engine: the one-card ``DistributedQueryRunner``
+(query, stage and task spans, and operator spans from each task's
+drivers through ``add_driver_spans``); the slow-query record and the
+span analysis are used as they are.
 """
 
 from __future__ import annotations
