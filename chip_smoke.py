@@ -105,6 +105,29 @@ Phases, one JSON line each on standard output:
              groups, and the final step's merge with the most groups
              (q1's final tasks each receive one page and merge nothing:
              its final page call);
+    process_sf1 — the multi-process cluster: ``ProcessQueryRunner(
+             n_workers=2, desired_splits=8, device="cuda")`` over the
+             generator-fed ``tpch.sf1``, a coordinator and two worker
+             processes on the card, each with its own CUDA context and a
+             node pool of a third of the card; first the in-process
+             distributed runner at the same task count, q1, q3 and q18
+             cold (kernel calls recorded) and warm (launches counted);
+             then the cluster: q1, q3 and q18 cold and warm against the
+             oracle, each warm wall beside the local runner's
+             generator-fed warm wall and the in-process one, the warm
+             run's kernel launches per process (q1's above 0 in each
+             worker), each process keeping the inputs of its launches; q1
+             under ``query_profiling_enabled``, the profiler's
+             ``segment_reduce_pallas`` calls and device memory per
+             process (above 0 in each worker); q1 under
+             ``retry_policy=TASK`` with a worker killed on its first leaf
+             task: the oracle's rows, one task retry inside attempt 0,
+             the worker replaced by the runtime's heartbeat monitor;
+    process_threads_q{1,3,18}_columns, process_q{1,3,18}_columns — the
+             in-process runs' recorded calls, and every launch of the
+             cluster's warm runs (written by each worker process, read
+             back onto this process's card), replayed like q3's, exact;
+             the page call with the most live rows and the merge timed;
 13. explain_analyze_sf1 — EXPLAIN ANALYZE of q18 over the memory tables:
              the plan, a ``Query:`` line whose row count is the oracle's,
              the ``Memory:`` line, one stats line per operator under
@@ -181,7 +204,8 @@ Phases, one JSON line each on standard output:
    the same at the page and merge calls of every replay above
    (``q3_shapes``, ``q18_shapes``, ``memory_q3_shapes``,
    ``memory_q18_shapes``, ``distributed_q1_shapes``,
-   ``distributed_q18_shapes``, ``spill_q18_shapes``,
+   ``distributed_q18_shapes``, ``process_threads_q*_shapes``,
+   ``process_q*_shapes``, ``spill_q18_shapes``,
    and ``observability_*_shapes``) and of the serving
    bursts' folded calls (``serving_shapes``);
 19. the last line: ``{"ok": true, "device": {...}}``.
@@ -196,6 +220,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -1343,6 +1368,262 @@ def distributed_sf1_phase(card, runner, memory_warm):
     return launches, recorded
 
 
+#: the multi-process cluster: a coordinator and this many worker
+#: processes on the one card, each with its own CUDA context
+PROCESS_WORKERS = 2
+PROCESS_QUERIES = (1, 3, 18)
+
+
+def _await_replacement(runner, events, pids, timeout: float = 90.0):
+    """Wait, without healing, until the runtime has replaced a worker of
+    ``pids`` (a ``WorkerReplacedEvent`` in ``events``) and every slot
+    answers the heartbeat; returns the replacement events."""
+    deadline = time.time() + timeout
+    while time.time() < deadline:
+        replaced = [e for e in events if e.old_pid in pids]
+        if replaced and all(runner.heartbeat()):
+            return replaced
+        time.sleep(0.5)
+    raise AssertionError(f"no worker of {pids} was replaced within "
+                         f"{timeout}s: {runner.heartbeat()}")
+
+
+def _load_calls(paths):
+    """The kernel calls that worker processes wrote (``record_kernel_
+    calls``), on this process's card, in the order of ``paths``; each
+    file is removed once read."""
+    import torch
+
+    calls = []
+    for path in paths:
+        calls.extend(torch.load(path, map_location="cuda",
+                                weights_only=True))
+        os.remove(path)
+    return calls
+
+
+def process_sf1_phase(card, tpch_warm, dump_dir):
+    """The multi-process cluster on the card:
+    ``ProcessQueryRunner(n_workers=2, desired_splits=8)`` over the
+    generator-fed ``tpch.sf1``, every process on CUDA, each worker's node
+    pool a third of the card. First the in-process distributed runner
+    over the same generator and task count, q1, q3 and q18 each cold
+    (its kernel calls recorded and replayed against the plain version)
+    then warm (its launches counted), against the oracle. Then the
+    cluster: q1, q3 and q18 cold and warm against the oracle, each warm
+    wall beside the local runner's generator-fed warm wall
+    (``tpch_warm``) and the in-process one, the warm run's kernel
+    launches per process (every counter set to 0 just before, read just
+    after; q1's in each worker above 0) and the inputs of each of those
+    launches, kept by each process and written under ``dump_dir``, then
+    replayed here against the plain version; q1 under
+    ``query_profiling_enabled`` with the profiler's
+    ``segment_reduce_pallas`` calls and device memory per process (each
+    worker's calls above 0); then q1 under ``retry_policy=TASK`` with a
+    ``kill-worker`` fault on its first leaf task: the oracle's rows, one
+    task retry inside attempt 0, and the dead worker replaced by the
+    runtime's heartbeat monitor (the script calls no heal). The runner
+    closes in a ``finally``, so no worker outlives the script. Returns
+    the warm runs' launches (summed over the processes) and the
+    replays' timed calls."""
+    import torch
+
+    from trino_tpu_torch.connectors.tpch import TpchConnector
+    from trino_tpu_torch.events import EventListener
+    from trino_tpu_torch.ops import kernels
+    from trino_tpu_torch.parallel import (DistributedQueryRunner,
+                                          ProcessQueryRunner)
+    from trino_tpu_torch.parallel.fault import FaultSchedule
+    from trino_tpu_torch.resources.tpch_queries import TPCH_QUERIES
+    from trino_tpu_torch.sql.analyzer import Session
+
+    launches, replayed = {}, {}
+    # the same plan shape in one process: the in-process distributed
+    # runner over the generator, as many tasks per stage
+    threads = DistributedQueryRunner(
+        {"tpch": TpchConnector(page_rows=1 << 16)},
+        Session(catalog="tpch", schema="sf1"), n_workers=PROCESS_WORKERS,
+        desired_splits=8, device="cuda")
+    threads_warm = {}
+    for qid in PROCESS_QUERIES:
+        sql, name = TPCH_QUERIES[qid], f"process_threads_q{qid}"
+        calls = []
+        with _recorded(calls):
+            cold = threads.execute(sql)
+        torch.cuda.synchronize()
+        _assert_same(cold, _load_expected(qid), f"in-process q{qid} cold")
+        if len(calls) != _kernel_calls(cold):
+            raise AssertionError(
+                f"in-process q{qid}: the cold run recorded {len(calls)} "
+                f"calls for {_kernel_calls(cold)} pages")
+        kernels.segment_reduce.launches = 0
+        t0 = time.perf_counter()
+        res = threads.execute(sql)
+        torch.cuda.synchronize()
+        threads_warm[qid] = round(time.perf_counter() - t0, 4)
+        launches[name] = kernels.segment_reduce.launches
+        _assert_same(res, _load_expected(qid), f"in-process q{qid}")
+        if launches[name] == 0 or launches[name] != _kernel_calls(res):
+            raise AssertionError(
+                f"in-process q{qid}: segment_reduce launched "
+                f"{launches[name]} times for {_kernel_calls(res)} "
+                "aggregated and merged pages (want one per page, and some)")
+        replayed[name] = columns_replay_phase(f"{name}_columns", calls,
+                                              "live")
+        del calls
+    del threads, cold, res
+    # the coordinator's cached blocks go back to the card before the
+    # workers open their contexts beside it
+    torch.cuda.empty_cache()
+    card_bytes = torch.cuda.mem_get_info()[1]
+    session = Session(catalog="tpch", schema="sf1")
+    # several processes share the card and each would otherwise size
+    # its pool to all of it: a third each (the coordinator, 2 workers)
+    session.properties["node_max_memory_bytes"] = card_bytes // 3
+
+    class Replacements(EventListener):
+        def __init__(self):
+            self.events = []
+
+        def worker_replaced(self, event):
+            self.events.append(event)
+
+    replacements = Replacements()
+    t0 = time.perf_counter()
+    runner = ProcessQueryRunner(
+        {"tpch": {"connector": "tpch", "page_rows": 1 << 16}}, session,
+        n_workers=PROCESS_WORKERS, desired_splits=8,
+        event_listeners=[replacements], device="cuda")
+    spawn_s = time.perf_counter() - t0
+    try:
+        for qid in PROCESS_QUERIES:
+            sql, name = TPCH_QUERIES[qid], f"process_q{qid}"
+            t0 = time.perf_counter()
+            cold = runner.execute(sql)
+            torch.cuda.synchronize()
+            cold_s = time.perf_counter() - t0
+            _assert_same(cold, _load_expected(qid), f"process q{qid} cold")
+            runner.kernel_launches(reset=True)
+            runner.record_kernel_calls()
+            t0 = time.perf_counter()
+            res = runner.execute(sql)
+            torch.cuda.synchronize()
+            warm_s = time.perf_counter() - t0
+            by_process = {proc: counts["segment_reduce"] for proc, counts
+                          in runner.kernel_launches().items()}
+            kept = runner.record_kernel_calls(dump_dir)
+            _assert_same(res, _load_expected(qid), f"process q{qid}")
+            idle = [proc for proc, n in by_process.items()
+                    if n == 0 and proc != "coordinator"]
+            if sum(by_process.values()) == 0 or (qid == 1 and idle):
+                raise AssertionError(
+                    f"process q{qid}: segment_reduce launches per process "
+                    f"{by_process} (want some, and in every worker for "
+                    "q1)")
+            if kept != by_process:
+                raise AssertionError(
+                    f"process q{qid}: calls kept per process {kept} for "
+                    f"launches {by_process}")
+            launches[name] = sum(by_process.values())
+            emit({"phase": "process_sf1", "query": f"q{qid}",
+                  "workers": PROCESS_WORKERS, "rows_out": len(res.rows),
+                  "matches_oracle": True, "spawn_s": round(spawn_s, 3),
+                  "cold_s": round(cold_s, 3), "warm_s": round(warm_s, 4),
+                  "local_generator_warm_s": tpch_warm.get(qid),
+                  "in_process_distributed_warm_s": threads_warm[qid],
+                  "launches_by_process": by_process,
+                  "node_max_memory_bytes": card_bytes // 3,
+                  "memory_peak_bytes":
+                      (res.stats.get("memory") or {}).get("peak_bytes"),
+                  "process_overlap": sum(
+                      bool(v) for v in
+                      (res.stats.get("process_overlap") or {}).values()),
+                  "card": card["nvidia_smi"]})
+            # every launch of the warm run, in the process that made it,
+            # against the plain version on the same inputs
+            calls = _load_calls([os.path.join(dump_dir, f"{proc}.pt")
+                                 for proc in sorted(kept)])
+            replayed[name] = columns_replay_phase(f"{name}_columns", calls,
+                                                  "live")
+            del calls
+        # the profiler's view: each worker process's kernel calls
+        session.properties["query_profiling_enabled"] = True
+        try:
+            t0 = time.perf_counter()
+            res = runner.execute(TPCH_QUERIES[1])
+            profiled_s = time.perf_counter() - t0
+        finally:
+            del session.properties["query_profiling_enabled"]
+        _assert_same(res, _load_expected(1), "process q1 profiled")
+        snap = runner.profile_snapshot()
+        calls, entries = {}, {}
+        for k in snap["kernels"]:
+            if k["name"] == "segment_reduce_pallas":
+                calls[k["process"]] = calls.get(k["process"], 0) + k["calls"]
+                # the shapes the kernel saw after the wire, its CUDA-event
+                # ms and the bytes bound of one call at that signature
+                entries.setdefault(k["process"], []).append({
+                    "key": k["key"], "calls": k["calls"],
+                    "execute_ms": k["execute_ms"],
+                    "bytes_per_call": k["bytes_accessed"],
+                    "bound_ms_per_call":
+                        k["bytes_accessed"] / HBM_BYTES_PER_S * 1e3})
+        workers = [f"worker-{i}" for i in range(PROCESS_WORKERS)]
+        if any(calls.get(w, 0) == 0 for w in workers):
+            raise AssertionError(
+                f"process q1 profiled: segment_reduce_pallas calls per "
+                f"process {calls} (want some in every worker)")
+        emit({"phase": "process_sf1", "step": "profiled_q1",
+              "wall_s": round(profiled_s, 4),
+              "segment_reduce_pallas_calls": calls,
+              "segment_reduce_pallas_entries": entries,
+              "device_memory": snap["device_memory"],
+              "card": card["nvidia_smi"]})
+        # retry_policy=TASK: a worker killed on q1's first leaf task
+        session.properties["retry_policy"] = "TASK"
+        try:
+            runner.fault_schedule = FaultSchedule(seed=42)
+            qid = f"q{runner._task_seq + 1}a0"
+            runner.fault_schedule.add(f"{qid}.f0", "kill-worker")
+            pids = [w.proc.pid for w in runner.workers]
+            replaced0 = runner.recovery_total.workers_replaced
+            mark = len(runner.task_launches)
+            t0 = time.perf_counter()
+            res = runner.execute(TPCH_QUERIES[1])
+            torch.cuda.synchronize()
+            chaos_s = time.perf_counter() - t0
+            _assert_same(res, _load_expected(1), "process q1 kill-worker")
+            recovery = res.stats["recovery"]
+            t0 = time.perf_counter()
+            events = _await_replacement(runner, replacements.events, pids)
+            replaced_after_s = time.perf_counter() - t0
+        finally:
+            del session.properties["retry_policy"]
+        replaced = runner.recovery_total.workers_replaced - replaced0
+        new_pids = [w.proc.pid for w in runner.workers]
+        attempts = runner.task_launches[mark:]
+        if recovery["task_retries"] != 1 or recovery["query_retries"] \
+                or recovery["retries_by_type"].get("EXTERNAL") != 1 \
+                or not all(f"{qid}." in t for t in attempts) \
+                or replaced < 1 or new_pids == pids \
+                or runner.fault_schedule.armed():
+            raise AssertionError(
+                f"process q1 kill-worker: recovery {recovery}, attempts "
+                f"{attempts}, workers replaced {replaced}, pids {pids} -> "
+                f"{new_pids}")
+        emit({"phase": "process_sf1", "step": "kill_worker_task_retry",
+              "query": "q1", "matches_oracle": True,
+              "wall_s": round(chaos_s, 4), "recovery": recovery,
+              "workers_replaced": replaced,
+              "replaced_by": sorted({e.reason for e in events}),
+              "replaced_s_after_query": round(replaced_after_s, 3),
+              "task_attempts": attempts,
+              "pids": [pids, new_pids], "card": card["nvidia_smi"]})
+    finally:
+        runner.close()
+    return launches, replayed
+
+
 def _step_picks(calls, labels) -> dict:
     """The replay's timed calls of a distributed run: the partial step's
     page call with the most live rows (``page``), its merge with the
@@ -2276,6 +2557,11 @@ def main() -> int:
             f"distributed_{name}_columns", calls, "live",
             picks=_step_picks(calls, labels))
         del calls
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_calls_") as dump:
+        process_launches, process_shapes = process_sf1_phase(
+            card, tpch_warm, dump)
+    launches.update(process_launches)
+    replayed.update(process_shapes)
     launches["explain_analyze_q18"] = explain_analyze_phase(card, runner)
     spill_launches, spill_calls = spill_phase(card, runner, peaks)
     launches.update(spill_launches)

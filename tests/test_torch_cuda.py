@@ -572,3 +572,48 @@ def test_distributed_on_the_card_equals_the_cpu(dev, sql):
     assert run(dev) == want
     assert DeviceExchange.total_collectives > before[0]
     assert kernels.segment_reduce.launches > before[1]
+
+
+def test_process_cluster_on_the_card_equals_the_cpu(dev, tmp_path):
+    """The multi-process cluster on the card: two worker processes, each
+    with its own CUDA context and a quarter of the card for its node
+    pool, return the CPU path's rows for q1 and q3 at tiny, each worker
+    process launched the kernel for q1's aggregations, and every launch
+    each process kept equals the plain version on its inputs."""
+    from trino_tpu_torch.parallel import ProcessQueryRunner
+
+    local = LocalQueryRunner({"tpch": TpchConnector(page_rows=4096)},
+                             Session(catalog="tpch", schema="tiny"),
+                             device="cpu")
+    s = Session(catalog="tpch", schema="tiny")
+    s.properties["node_max_memory_bytes"] = \
+        torch.cuda.mem_get_info()[1] // 4
+    with ProcessQueryRunner({"tpch": {"connector": "tpch",
+                                      "page_rows": 4096}}, s,
+                            n_workers=2, desired_splits=8,
+                            device=dev) as cluster:
+        for qid in (1, 3):
+            cluster.kernel_launches(reset=True)
+            cluster.record_kernel_calls()
+            got = cluster.execute(TPCH_QUERIES[qid]).rows
+            launches = cluster.kernel_launches()
+            kept = cluster.record_kernel_calls(str(tmp_path))
+            assert got == local.execute(TPCH_QUERIES[qid]).rows, qid
+            assert kept == {proc: n["segment_reduce"]
+                            for proc, n in launches.items()}, (kept,
+                                                              launches)
+            if qid == 1:
+                assert all(launches[f"worker-{i}"]["segment_reduce"] > 0
+                           for i in range(2)), launches
+            # each worker's launches, replayed here against the plain
+            # version on the inputs that worker gave the kernel
+            for proc in kept:
+                for cols, gid, ns, kinds, order in torch.load(
+                        tmp_path / f"{proc}.pt", map_location=dev,
+                        weights_only=True):
+                    got = kernels.segment_reduce_columns(cols, gid, ns,
+                                                         kinds, order)
+                    want = kernels.segment_reduce_columns_reference(
+                        cols, gid, ns, kinds, order)
+                    for g, w in zip(got, want):
+                        assert torch.equal(g, w), (proc, qid)

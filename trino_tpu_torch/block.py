@@ -15,7 +15,7 @@ tensors on one device, padded to power-of-two bucket sizes.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional, Sequence, Union
+from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
 
@@ -449,16 +449,29 @@ class DevicePage:
         return DevicePage([b.type for b in page.blocks], cols, nulls,
                           torch.from_numpy(valid).to(device), dicts)
 
+    def live_lanes(self, keep=None) -> Tuple[int, list, list]:
+        """``(rows, cols, nulls)``: the live lanes of every column and
+        null mask as host numpy arrays. Compaction runs on the device (one
+        ``nonzero``, one gather per array) before the one copy to the
+        host, so a mostly dead page moves only its live rows. The one
+        compaction of the wire (``to_page``) and the spill tier
+        (``exec.memory.SpilledPage``). ``keep`` is the live lanes' index
+        tensor where the caller already has it."""
+        import torch
+
+        if keep is None:
+            keep = torch.nonzero(self.valid).squeeze(1)
+        cols = [c[keep].cpu().numpy() for c in self.cols]
+        nulls = [nl[keep].cpu().numpy() for nl in self.nulls]
+        return int(keep.shape[0]), cols, nulls
+
     def to_page(self) -> Page:
-        """Compact live lanes back to a host Page."""
-        keep = np.nonzero(self.valid.cpu().numpy())[0]
-        blocks = []
-        for t, c, nl, d in zip(self.types, self.cols, self.nulls,
-                               self.dictionaries):
-            data = c.cpu().numpy()[keep]
-            nulls = nl.cpu().numpy()[keep]
-            blocks.append(Block(t, data, nulls if nulls.any() else None, d))
-        return Page(blocks, len(keep))
+        """Compact live lanes back to a host Page (``live_lanes``)."""
+        n, cols, nulls = self.live_lanes()
+        blocks = [Block(t, data, nl if nl.any() else None, d)
+                  for t, data, nl, d in zip(self.types, cols, nulls,
+                                            self.dictionaries)]
+        return Page(blocks, n)
 
 
 def unify_dictionaries(pages, n_channels: int):

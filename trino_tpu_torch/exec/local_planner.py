@@ -141,6 +141,7 @@ class LocalExecutionPlanner:
                  exchange_reader=None,
                  memory_pool=None, join_max_lanes: Optional[int] = None,
                  dynamic_filtering: bool = True,
+                 page_sink_factory=None,
                  hash_grouping: bool = True,
                  adaptive_partial_agg: bool = True,
                  adaptive_partial_ratio: float = ADAPTIVE_RATIO_THRESHOLD,
@@ -181,6 +182,10 @@ class LocalExecutionPlanner:
         self.hybrid_join = hybrid_join
         self.hybrid_join_fanout = hybrid_join_fanout
         self.hybrid_join_max_depth = hybrid_join_max_depth
+        #: override for write sinks: ``factory(TableWriterNode) -> sink``
+        #: — the multi-process runtime routes worker writes to the
+        #: coordinator's catalog through this (page-sink RPC)
+        self.page_sink_factory = page_sink_factory
         #: shared PageProcessor cache (cache.ProcessorCache): repeat
         #: plans reuse already-planned processors and their uploaded
         #: LUTs; None = build fresh per plan
@@ -629,17 +634,20 @@ class LocalExecutionPlanner:
         from ..ops.operator import TableWriterOperator
 
         ops, layout, types_ = self.visit(node.source)
-        conn = self.metadata.connectors[node.catalog]
-        if node.create:
-            # CTAS creates the target here, at execution time — EXPLAIN
-            # and failed planning never mutate metadata
-            handle = create_table_idempotent(
-                conn, node.schema, node.table_name, node.columns)
+        if self.page_sink_factory is not None:
+            sink = self.page_sink_factory(node)
         else:
-            handle = conn.metadata().get_table_handle(node.schema,
-                                                      node.table_name)
-        ops.append(TableWriterOperator(conn.page_sink(handle, node.columns),
-                                       self.device))
+            conn = self.metadata.connectors[node.catalog]
+            if node.create:
+                # CTAS creates the target here, at execution time —
+                # EXPLAIN and failed planning never mutate metadata
+                handle = create_table_idempotent(
+                    conn, node.schema, node.table_name, node.columns)
+            else:
+                handle = conn.metadata().get_table_handle(
+                    node.schema, node.table_name)
+            sink = conn.page_sink(handle, node.columns)
+        ops.append(TableWriterOperator(sink, self.device))
         return ops, {node.rows_symbol.name: 0}, [T.BIGINT]
 
     def _v_RemoteSourceNode(self, node):

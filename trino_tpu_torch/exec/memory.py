@@ -1,7 +1,8 @@
-"""Memory governance: the per-query pool and the host-RAM and disk spill
-tiers.
+"""Memory governance: node-wide and per-query pools, and the host-RAM
+and disk spill tiers.
 
-Reference analog: ``memory/MemoryPool.java`` (per-query reservations),
+Reference analog: ``memory/MemoryPool.java`` (one pool per node shared by
+every query, with per-query reservations),
 ``lib/trino-memory-context`` (the memory-context tree charged by
 operators), ``execution/MemoryRevokingScheduler.java:48`` (pool pressure
 -> revoke the largest revocable operators) and
@@ -14,24 +15,37 @@ pages they retain. Spill degrades in two tiers — device -> host (a
 ``DevicePage`` parked as numpy arrays in a ``SpilledPage``) and host ->
 disk (a ``DiskSpilledPage`` holding a CRC-framed, atomically written
 spill file; see ``serde.spill_frame``) — so a query under pressure
-degrades instead of failing. A reservation that would exceed the query's
-``query_max_memory_bytes`` first revokes the query's own revocable
-contexts largest-first (when ``spill_enabled``); still over =>
-MemoryExceededError (EXCEEDED_LOCAL_MEMORY_LIMIT). Host-RAM residency of
-spilled state is tracked by a ``HostSpillLedger``; crossing its limit
+degrades instead of failing. Pool hierarchy:
+
+  NodeMemoryPool            one per worker process, all queries charge it
+    QueryMemoryPool         per (query, worker): query_max_memory_bytes
+      OperatorMemoryContext per stateful operator (agg/join/sort)
+
+A reservation that would exceed the query's ``query_max_memory_bytes``
+first revokes the query's own revocable contexts largest-first (when
+``spill_enabled``); one that would exceed the node cap revokes across
+queries largest-first; still over => MemoryExceededError
+(EXCEEDED_LOCAL_MEMORY_LIMIT) respectively NodeMemoryExceededError
+(EXCEEDED_NODE_MEMORY) — both INSUFFICIENT_RESOURCES, so the
+coordinator's memory-aware retry can re-admit with a grown budget.
+Host-RAM residency of spilled state is tracked by a ``HostSpillLedger``
+(node-wide when a node pool exists); crossing its limit
 (``spill_host_memory_bytes``) demotes the largest parked pages to disk
 when ``spill_to_disk_enabled``.
 
 A parked page remembers the device it came from and goes back there, so a
 runner on ``cuda:1`` reloads onto ``cuda:1``, not the default device. The
-node-wide pool shared by concurrent queries (and the memory killer on top
-of it) comes with the multi-process runner; the one-card distributed
-runner gives all tasks of a query one pool.
+node-wide pool belongs to a worker process of the multi-process runner
+(``parallel/worker.py``); the one-card distributed runner gives all tasks
+of a query one pool. On CUDA several worker processes share one card,
+and ``default_node_memory_bytes`` reports the whole card to each of them:
+size ``node_max_memory_bytes`` to each process's share.
 
 Locking: the pool lock and context locks are never held together —
 revoke callbacks run under the victim context's lock only, and pool
 bookkeeping for the freed bytes happens after the context lock is
-released. Operators mutate spillable state only under their context lock.
+released. The node pool's lock is likewise never held across a revoke
+callback. Operators mutate spillable state only under their context lock.
 """
 
 from __future__ import annotations
@@ -53,6 +67,23 @@ class MemoryExceededError(TrinoError):
             f"(reserved {reserved}, requested {requested}); "
             "raise query_max_memory_bytes or enable spill_enabled",
             "EXCEEDED_LOCAL_MEMORY_LIMIT")
+        self.requested = requested
+        self.reserved = reserved
+        self.limit = limit
+
+
+class NodeMemoryExceededError(TrinoError):
+    """The worker-wide pool is exhausted across ALL queries and
+    cross-query revocation could not free enough (reference: the node
+    MemoryPool blocking with no revocable bytes left)."""
+
+    def __init__(self, requested: int, reserved: int, limit: int,
+                 query_id: str = ""):
+        super().__init__(
+            f"Worker memory pool exhausted: node limit {limit} bytes, "
+            f"reserved {reserved} across all queries, query "
+            f"{query_id or '?'} requested {requested} more",
+            "EXCEEDED_NODE_MEMORY")
         self.requested = requested
         self.reserved = reserved
         self.limit = limit
@@ -90,9 +121,9 @@ def device_page_bytes(page) -> int:
 class SpilledPage:
     """A DevicePage parked in host RAM.
 
-    Live lanes are compacted to the smallest power-of-two capacity on the
-    device (one ``nonzero`` and one gather per column) before the copy to
-    the host: device pages are often mostly dead lanes (filtered rows,
+    Live lanes are compacted on the device (``DevicePage.live_lanes``,
+    the wire's compaction too) and padded to the smallest power-of-two
+    capacity: device pages are often mostly dead lanes (filtered rows,
     partials padded to their input capacity), so compaction shrinks both
     the host footprint and the device memory needed to bring the page
     back. ``device`` is where ``to_device`` puts it back."""
@@ -112,10 +143,9 @@ class SpilledPage:
         k = int(keep.shape[0])
         cap = padded_size(k)
         if cap < page.capacity:
-            self.cols = [np_pad(c[keep].cpu().numpy(), cap)
-                         for c in page.cols]
-            self.nulls = [np_pad(n[keep].cpu().numpy(), cap)
-                          for n in page.nulls]
+            _, cols, nulls = page.live_lanes(keep)
+            self.cols = [np_pad(c, cap) for c in cols]
+            self.nulls = [np_pad(n, cap) for n in nulls]
             v = np.zeros(cap, dtype=bool)
             v[:k] = True
             self.valid = v
@@ -211,10 +241,10 @@ class DiskSpilledPage(SpilledPage):
 
 
 class HostSpillLedger:
-    """Live host-RAM bytes held by a query's SpilledPages. Charged at
-    spill time and discharged by a weakref finalizer when the parked
-    page is dropped (uploaded back or demoted), so residency tracks
-    actual lifetime, not call sites.
+    """Live host-RAM bytes held by SpilledPages, node-wide when a node
+    pool exists. Charged at spill time and discharged by a weakref
+    finalizer when the parked page is dropped (uploaded back or
+    demoted), so residency tracks actual lifetime, not call sites.
 
     The ledger also tracks the operator page lists holding parked pages
     (with the context lock guarding each), so over-limit demotion can
@@ -504,18 +534,22 @@ class OperatorMemoryContext:
 
 
 class QueryMemoryPool:
-    """Per-query device-memory accounting with synchronous revocation
-    (reference: ``memory/MemoryPool.java``'s per-query reservation +
-    ``QueryContext``)."""
+    """Per-(query, node) device-memory accounting with synchronous
+    revocation (reference: ``memory/MemoryPool.java``'s per-query
+    reservation + ``QueryContext``). With a ``parent`` NodeMemoryPool every
+    reservation also charges the node; without one (single-query runners)
+    the pool stands alone."""
 
     def __init__(self, max_bytes: int, spill_enabled: bool = False,
                  spill_to_disk: bool = False,
                  host_spill_limit: Optional[int] = None,
+                 parent: "NodeMemoryPool" = None,
                  query_id: str = "q"):
         self.max_bytes = int(max_bytes)
         self.spill_enabled = spill_enabled
         self.spill_to_disk = spill_to_disk
         self.query_id = query_id
+        self.parent = parent
         self.reserved = 0
         self.peak_bytes = 0
         self.spill_events = 0
@@ -530,7 +564,8 @@ class QueryMemoryPool:
         self._fault_revoke_left: Optional[int] = None
         self._lock = threading.Lock()
         self._contexts: List[OperatorMemoryContext] = []
-        self.host_ledger = HostSpillLedger(host_spill_limit)
+        self.host_ledger = parent.host_ledger if parent is not None \
+            else HostSpillLedger(host_spill_limit)
         self.disk_spiller = DiskSpiller(query_id) if spill_to_disk \
             else None
 
@@ -546,7 +581,7 @@ class QueryMemoryPool:
         """Demote the largest in-RAM SpilledPages to disk while the host
         ledger is over its limit: this operator's own list first (its
         context lock is already held by the caller), then across every
-        other tracked operator list."""
+        other tracked operator list on the node."""
         if self.disk_spiller is None or not self.host_ledger.over_limit():
             return
         self._demote_list_locked(pages)
@@ -570,6 +605,19 @@ class QueryMemoryPool:
 
     # -- internal (called by contexts) ----------------------------------
 
+    def _reserve(self, ctx: OperatorMemoryContext, nbytes: int,
+                 revocable: bool):
+        self._reserve_local(ctx, nbytes, revocable)
+        if self.parent is not None:
+            try:
+                self.parent.reserve_for(self, nbytes)
+            except TrinoError:
+                # roll back the local admit only: the node charge never
+                # happened, so _free's parent uncharge must not run
+                with self._lock:
+                    self._free_locked(ctx, nbytes, revocable)
+                raise
+
     def _maybe_fault_revoke(self):
         """Injected revocation: every ``countdown``-th reserve call
         revokes everything revocable."""
@@ -585,8 +633,8 @@ class QueryMemoryPool:
             self._fault_revoke_left = period
         self.revoke_up_to(self.max_bytes)
 
-    def _reserve(self, ctx: OperatorMemoryContext, nbytes: int,
-                 revocable: bool):
+    def _reserve_local(self, ctx: OperatorMemoryContext, nbytes: int,
+                       revocable: bool):
         self._maybe_fault_revoke()
         # revoke-until-fit: the target is re-derived under the lock each
         # round and the request fails only once revocation stops making
@@ -641,6 +689,10 @@ class QueryMemoryPool:
                 self._free(c, freed, revocable=True)
         return total_freed
 
+    def revocable_bytes(self) -> int:
+        with self._lock:
+            return sum(c.revocable for c in self._contexts)
+
     def _admit_locked(self, ctx, nbytes, revocable):
         self.reserved += nbytes
         ctx.reserved += nbytes
@@ -652,11 +704,17 @@ class QueryMemoryPool:
     def _free(self, ctx: OperatorMemoryContext, nbytes: int,
               revocable: bool):
         with self._lock:
-            nbytes = min(nbytes, ctx.reserved)
-            self.reserved -= nbytes
-            ctx.reserved -= nbytes
-            if revocable:
-                ctx.revocable = max(0, ctx.revocable - nbytes)
+            freed = self._free_locked(ctx, nbytes, revocable)
+        if freed and self.parent is not None:
+            self.parent.uncharge_for(self, freed)
+
+    def _free_locked(self, ctx, nbytes, revocable) -> int:
+        nbytes = min(nbytes, ctx.reserved)
+        self.reserved -= nbytes
+        ctx.reserved -= nbytes
+        if revocable:
+            ctx.revocable = max(0, ctx.revocable - nbytes)
+        return nbytes
 
     def record_spill(self, freed: int):
         with self._lock:
@@ -671,7 +729,7 @@ class QueryMemoryPool:
 
     def close(self):
         """Release every context's residue and the disk spill directory
-        (end of the query's life)."""
+        (end of the query's life on this node)."""
         with self._lock:
             contexts = list(self._contexts)
         for c in contexts:
@@ -699,9 +757,154 @@ class QueryMemoryPool:
         return out
 
 
-def pool_from_session(session, query_id: str = "q") -> QueryMemoryPool:
+class NodeMemoryPool:
+    """The worker-wide pool every concurrent query charges (reference:
+    ``memory/MemoryPool.java`` — the actual per-node general pool).
+
+    Over-budget reservations revoke across queries LARGEST-REVOCABLE-
+    first; a node that still cannot admit records a blocked event (the
+    signal the coordinator's low-memory killer keys on) and raises
+    EXCEEDED_NODE_MEMORY."""
+
+    def __init__(self, max_bytes: int,
+                 host_spill_limit: Optional[int] = None):
+        self.max_bytes = int(max_bytes)
+        self.reserved = 0
+        self.peak_bytes = 0
+        self.blocked_events = 0
+        self.cross_query_revokes = 0
+        self._lock = threading.Lock()
+        self._children: Dict[str, QueryMemoryPool] = {}
+        #: peaks of already-released queries, kept so a heartbeat after
+        #: the fast failure still feeds the retry MemoryEstimator
+        self._released_peaks: Dict[str, int] = {}
+        self.host_ledger = HostSpillLedger(host_spill_limit)
+
+    def create_query_pool(self, query_id: str, max_bytes: int,
+                          spill_enabled: bool = False,
+                          spill_to_disk: bool = False) -> QueryMemoryPool:
+        with self._lock:
+            pool = self._children.get(query_id)
+            if pool is None:
+                pool = QueryMemoryPool(
+                    max_bytes, spill_enabled, spill_to_disk,
+                    parent=self, query_id=query_id)
+                self._children[query_id] = pool
+            else:
+                # a hit must not serve a stale configuration (the
+                # qlint cache-coherence class): a memory-aware retry
+                # re-admits with an ESCALATED budget while a straggling
+                # prior attempt still holds a pool ref — widen to the
+                # newest request instead of silently keeping the old
+                # limits
+                pool.max_bytes = max(pool.max_bytes, int(max_bytes))
+                pool.spill_enabled = pool.spill_enabled or spill_enabled
+                if spill_to_disk and not pool.spill_to_disk:
+                    pool.spill_to_disk = True
+                    if pool.disk_spiller is None:
+                        pool.disk_spiller = DiskSpiller(query_id)
+            return pool
+
+    def release_query(self, query_id: str):
+        with self._lock:
+            pool = self._children.pop(query_id, None)
+            if pool is not None:
+                if len(self._released_peaks) >= 64:
+                    self._released_peaks.clear()
+                self._released_peaks[query_id] = pool.peak_bytes
+        if pool is not None:
+            pool.close()
+            # close() frees context residue, which uncharges us; any
+            # accounting drift dies with the child here
+            with self._lock:
+                self.reserved -= min(self.reserved, pool.reserved)
+
+    # -- charging (called by child pools, never under their lock) --------
+
+    def reserve_for(self, child: QueryMemoryPool, nbytes: int):
+        # revoke-until-fit (same discipline as the query pool): the
+        # target re-derives under the lock each round so concurrent
+        # admissions cannot turn a satisfiable request into a failure
+        # while revocable state remains
+        while True:
+            with self._lock:
+                if self.reserved + nbytes <= self.max_bytes:
+                    self._admit_locked(nbytes)
+                    return
+                needed = self.reserved + nbytes - self.max_bytes
+                # cross-query revocation, largest revocable first; the
+                # requester revokes last (its state is already
+                # host-bound if its own cap forced spill)
+                victims = sorted(self._children.values(),
+                                 key=lambda p: (p is child,
+                                                -p.revocable_bytes()))
+            round_freed = 0
+            for victim in victims:
+                if round_freed >= needed:
+                    break
+                if not victim.spill_enabled:
+                    continue
+                freed = victim.revoke_up_to(needed - round_freed)
+                if freed > 0:
+                    with self._lock:
+                        self.cross_query_revokes += 1
+                round_freed += freed
+            if round_freed <= 0:
+                break
+        with self._lock:
+            if self.reserved + nbytes > self.max_bytes:
+                self.blocked_events += 1
+                raise NodeMemoryExceededError(
+                    nbytes, self.reserved, self.max_bytes,
+                    child.query_id)
+            self._admit_locked(nbytes)
+
+    def _admit_locked(self, nbytes: int):
+        self.reserved += nbytes
+        self.peak_bytes = max(self.peak_bytes, self.reserved)
+
+    def uncharge_for(self, child: QueryMemoryPool, nbytes: int):
+        with self._lock:
+            self.reserved -= min(self.reserved, nbytes)
+
+    # -- observability ---------------------------------------------------
+
+    def snapshot(self) -> dict:
+        """The heartbeat-piggyback payload: node totals + per-query
+        reservations, the ClusterMemoryManager's input (reference:
+        MemoryInfo in the ServerInfo heartbeat).  ``blocked_events`` is
+        a DELTA consumed by the read: one blocked episode must trigger
+        at most one killer decision, not one per heartbeat forever."""
+        with self._lock:
+            queries = {qid: {"reserved": 0, "peak": peak, "spilled": 0}
+                       for qid, peak in self._released_peaks.items()}
+            queries.update({qid: {"reserved": p.reserved,
+                                  "peak": p.peak_bytes,
+                                  "spilled": p.spilled_bytes}
+                            for qid, p in self._children.items()})
+            blocked, self.blocked_events = self.blocked_events, 0
+            return {
+                "max_bytes": self.max_bytes,
+                "reserved_bytes": self.reserved,
+                "peak_bytes": self.peak_bytes,
+                "blocked_events": blocked,
+                "cross_query_revokes": self.cross_query_revokes,
+                "host_spill_resident": self.host_ledger.resident_bytes,
+                "queries": queries,
+            }
+
+
+def pool_from_session(session, query_id: str = "q",
+                      parent: NodeMemoryPool = None) -> QueryMemoryPool:
+    """The query's pool: a child of ``parent`` (a worker's node pool)
+    when given, else a pool of its own."""
     from .. import session_properties as SP
 
+    if parent is not None:
+        return parent.create_query_pool(
+            query_id, SP.value(session, "query_max_memory_bytes"),
+            SP.value(session, "spill_enabled"),
+            SP.value(session, "spill_to_disk_enabled"))
     return QueryMemoryPool(
         SP.value(session, "query_max_memory_bytes"),
         SP.value(session, "spill_enabled"),

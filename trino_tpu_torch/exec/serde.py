@@ -1,26 +1,39 @@
-"""Spill frames: the disk tier's file format.
+"""Page wire serde (the cross-process exchange format) and spill frames
+(the disk tier's file format).
 
-Reference analog: ``spiller/FileSingleStreamSpiller.java`` (a page stream
-in a compressed, checksummed frame). This is the JAX engine's spill frame
-(``trino_tpu/exec/serde.py``), copied byte for byte so a parked page
-writes the same bytes in both engines: dtype-tagged raw buffers of the
-page's columns, null masks and valid mask, zlib level 1, CRC-32 over the
-compressed body, written atomically. The exchange page serde of that
-module comes with the multi-process runner (the one-card distributed
-runner hands pages between its tasks in memory).
+Reference analog: ``execution/buffer/PagesSerdeFactory.java:24`` +
+``PageSerializer.java`` / ``PageDeserializer.java`` (block encodings in a
+compressed, checksummed frame) and ``spiller/FileSingleStreamSpiller.java``
+(a page stream in a compressed, checksummed file).
+
+Both formats are the JAX engine's (``trino_tpu/exec/serde.py``), copied
+byte for byte so the two engines write the same bytes for the same host
+page and read each other's frames. A page frame holds dtype-tagged raw
+buffers and a packed null bitmap per block; dictionary pools ship once
+per (stream, channel, pool), later pages carrying only the pool id and
+the pool's growth (a delta); zlib level 1; CRC-32 over the compressed
+body. A spill frame holds a parked page's columns, null masks and valid
+mask, written atomically.
+
+``PageSerializer.serialize`` takes a host ``Page``. A ``DevicePage``
+reaches it through ``DevicePage.to_page``, which compacts the live lanes
+on the device before the one copy to the host.
 """
 
 from __future__ import annotations
 
 import io
+import json
 import struct
 import zlib
-from typing import List
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
 from .. import types as T
+from ..block import Block, Dictionary, Page
 
+_MAGIC = 0x54505047  # "TPPG"
 _SPILL_MAGIC = 0x54505350  # "TPSP"
 
 
@@ -198,3 +211,184 @@ def read_spill_file(path: str):
     back)."""
     with open(path, "rb") as f:
         return _read_spill_stream(f)
+
+
+def _jsonable(v):
+    """Pool-entry -> JSON: tuples become tagged lists (nesting survives
+    the round trip as tuples, not lists) and Decimals become tagged
+    strings."""
+    from decimal import Decimal
+
+    if isinstance(v, tuple):
+        return ["t", [_jsonable(x) for x in v]]
+    if isinstance(v, Decimal):
+        return ["d", str(v)]
+    return ["v", v]
+
+
+def _from_jsonable(doc):
+    from decimal import Decimal
+
+    tag, payload = doc
+    if tag == "t":
+        return tuple(_from_jsonable(x) for x in payload)
+    if tag == "d":
+        return Decimal(payload)
+    return payload
+
+
+def _wire_signature(t: T.Type) -> str:
+    """Type -> wire string. TIMESTAMP WITH TIME ZONE carries its zone
+    (case-sensitive) in brackets; ``parse_type`` alone would drop it."""
+    if t.is_timestamp_tz:
+        return f"timestamptz[{t.zone}]"
+    return str(t)
+
+
+def _parse_wire_signature(sig: str) -> T.Type:
+    if sig.startswith("timestamptz[") and sig.endswith("]"):
+        return T.timestamp_tz_type(sig[len("timestamptz["):-1])
+    return T.parse_type(sig)
+
+
+class PageSerializer:
+    """One serializer per output stream (per consumer); tracks which
+    dictionary pools were already shipped on each channel."""
+
+    def __init__(self, compress: bool = True):
+        self.compress = compress
+        self._sent_pools: Dict[Tuple[int, int], int] = {}
+        self._next_pool_id = 1
+
+    def serialize(self, page: Page) -> bytes:
+        parts: List[bytes] = [struct.pack("<IH", page.num_rows,
+                                          page.channel_count)]
+        for ch, b in enumerate(page.blocks):
+            b = b.numpy()
+            sig = _wire_signature(b.type).encode()
+            flags = 0
+            dict_payload = b""
+            if b.dictionary is not None:
+                key = (ch, id(b.dictionary))
+                pool_id = self._sent_pools.get(key)
+                if pool_id is None:
+                    pool_id = self._next_pool_id
+                    self._next_pool_id += 1
+                    # pool contents ride along exactly once per stream;
+                    # later pages reference the id only.  Pools are
+                    # append-only, so ship the CURRENT length and send a
+                    # delta if it grew (scan pools grow across pages).
+                    self._sent_pools[key] = pool_id
+                    sent_len = 0
+                else:
+                    sent_len = self._sent_pools.get((ch, -pool_id), 0)
+                values = b.dictionary.values
+                delta = list(values[sent_len:])
+                # record what was ACTUALLY sent: the pool may grow
+                # concurrently (Dictionary.code is thread-safe growth),
+                # and len(values) re-read here could exceed the slice
+                self._sent_pools[(ch, -pool_id)] = sent_len + len(delta)
+                if b.type.is_pooled and not b.type.is_string:
+                    # composite pool entries (tuples) ship as JSON;
+                    # flag bit 4 tells the reader to decode them back
+                    enc = [json.dumps(_jsonable(v)).encode()
+                           for v in delta]
+                    flags |= 4
+                else:
+                    enc = [v.encode() for v in delta]
+                dict_payload = struct.pack("<III", pool_id, sent_len,
+                                           len(enc))
+                dict_payload += b"".join(
+                    struct.pack("<I", len(e)) + e for e in enc)
+                flags |= 2
+            data = np.ascontiguousarray(b.data).tobytes()
+            if b.nulls is not None:
+                flags |= 1
+                nulls = np.packbits(b.nulls.astype(np.uint8)).tobytes()
+            else:
+                nulls = b""
+            parts.append(struct.pack("<BH", flags, len(sig)))
+            parts.append(sig)
+            parts.append(dict_payload)
+            parts.append(struct.pack("<I", len(data)))
+            parts.append(data)
+            parts.append(struct.pack("<I", len(nulls)))
+            parts.append(nulls)
+        raw = b"".join(parts)
+        body = zlib.compress(raw, 1) if self.compress else raw
+        header = struct.pack("<IBII", _MAGIC, 1 if self.compress else 0,
+                             len(raw), zlib.crc32(body))
+        return header + body
+
+
+class PageDeserializer:
+    """One per input stream; reconstructs dictionary pools by id."""
+
+    def __init__(self):
+        self._pools: Dict[Tuple[int, int], Dictionary] = {}
+
+    def deserialize(self, frame: bytes) -> Page:
+        magic, compressed, raw_len, crc = struct.unpack_from("<IBII",
+                                                             frame, 0)
+        if magic != _MAGIC:
+            raise T.TrinoError("bad page frame magic",
+                               "GENERIC_INTERNAL_ERROR")
+        body = frame[13:]
+        if zlib.crc32(body) != crc:
+            raise T.TrinoError("page frame checksum mismatch",
+                               "GENERIC_INTERNAL_ERROR")
+        raw = zlib.decompress(body) if compressed else body
+        if len(raw) != raw_len:
+            raise T.TrinoError("page frame length mismatch",
+                               "GENERIC_INTERNAL_ERROR")
+        off = 0
+        num_rows, nch = struct.unpack_from("<IH", raw, off)
+        off += 6
+        blocks = []
+        for ch in range(nch):
+            flags, sig_len = struct.unpack_from("<BH", raw, off)
+            off += 3
+            sig = raw[off:off + sig_len].decode()
+            off += sig_len
+            type_ = _parse_wire_signature(sig)
+            dictionary: Optional[Dictionary] = None
+            if flags & 2:
+                pool_id, sent_len, n_delta = struct.unpack_from(
+                    "<III", raw, off)
+                off += 12
+                values = []
+                for _ in range(n_delta):
+                    (vlen,) = struct.unpack_from("<I", raw, off)
+                    off += 4
+                    text = raw[off:off + vlen].decode()
+                    values.append(_from_jsonable(json.loads(text))
+                                  if flags & 4 else text)
+                    off += vlen
+                dictionary = self._pools.get((ch, pool_id))
+                if dictionary is None:
+                    dictionary = Dictionary()
+                    self._pools[(ch, pool_id)] = dictionary
+                if len(dictionary) < sent_len + len(values):
+                    # append the delta POSITIONALLY (pools may repeat
+                    # values — Dictionary.aligned — so dedup via code()
+                    # would misalign codes)
+                    for v in values[len(dictionary) - sent_len:]:
+                        dictionary._index.setdefault(
+                            v, len(dictionary.values))
+                        dictionary.values.append(v)
+                    dictionary._sort_rank = None
+            (dlen,) = struct.unpack_from("<I", raw, off)
+            off += 4
+            data = np.frombuffer(raw, dtype=type_.storage, count=num_rows,
+                                 offset=off).copy()
+            off += dlen
+            (nlen,) = struct.unpack_from("<I", raw, off)
+            off += 4
+            nulls = None
+            if flags & 1:
+                bits = np.frombuffer(raw, dtype=np.uint8, count=nlen,
+                                     offset=off)
+                nulls = np.unpackbits(bits, count=num_rows).astype(bool)
+            off += nlen
+            blocks.append(Block(type_, data, nulls, dictionary))
+        return Page(blocks, num_rows)

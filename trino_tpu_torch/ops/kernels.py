@@ -52,6 +52,9 @@ _build_lock = threading.Lock()
 #: guards the launch counters: a server runs statements on several
 #: threads, and ``launches += 1`` is not atomic under threads
 _count_lock = threading.Lock()
+#: while a list: a copy of the inputs of every call that launches the
+#: kernel, in launch order (``record_calls``)
+_recorded: Optional[list] = None
 
 
 def _nvcc() -> str:
@@ -263,6 +266,12 @@ def segment_reduce_columns(cols: Sequence[torch.Tensor], gid: torch.Tensor,
     dtype_codes = _dtype_codes(cols, gid, order, num_segments)
     if not cols:
         return []
+    if _recorded is not None:
+        entry = ([c.clone() for c in cols], gid.clone(), num_segments,
+                 list(kinds), None if order is None else order.clone())
+        with _count_lock:
+            if _recorded is not None:
+                _recorded.append(entry)
     return _launch(cols, gid, num_segments, tuple(kinds), order,
                    dtype_codes)
 
@@ -356,3 +365,26 @@ def segment_reduce(col: torch.Tensor, gid: torch.Tensor, num_segments: int,
 #: ``segment_reduce_columns`` call on the card (the CPU path never counts):
 #: how a run shows that its main path went through the kernel
 segment_reduce.launches = 0
+
+
+def record_calls(on: bool) -> list:
+    """Start (``on``) or stop keeping a copy of the inputs ``(cols, gid,
+    num_segments, kinds, order)`` of every ``segment_reduce_columns`` call
+    that launches the kernel; returns the calls kept since the start
+    (empty when starting). How a run's launches in a worker process are
+    held against the plain version after the run."""
+    global _recorded
+    with _count_lock:
+        kept, _recorded = _recorded or [], ([] if on else None)
+    return kept
+
+
+def launch_counts(reset: bool = False) -> dict:
+    """This process's launch counter of every kernel, read (and with
+    ``reset`` set back to 0) under the counters' lock: a worker process
+    of the multi-process runtime reports its own launches through this."""
+    with _count_lock:
+        out = {"segment_reduce": segment_reduce.launches}
+        if reset:
+            segment_reduce.launches = 0
+    return out

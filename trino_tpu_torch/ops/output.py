@@ -10,11 +10,12 @@ The JAX engine's ``trino_tpu/ops/output.py`` on torch. Partition ids
 are computed on the device from the same value-stable uint64
 normalization the device exchange uses (``parallel/exchange.py``), so
 both paths route a row alike; string keys hash via a LUT of stable crc32
-values (codes are pool-local, values are not). The page then comes to
-the host once, with its partition ids, and the per-partition row
-extraction runs there; consumers upload each page to their device. The
-device exchange (``parallel/device_exchange.py``) replaces this path for
-hash boundaries that stay on the device.
+values (codes are pool-local, values are not). The page's live lanes
+are compacted on the device and come to the host once, with their
+partition ids, and the per-partition row extraction runs there;
+consumers upload each page to their device. The device exchange
+(``parallel/device_exchange.py``) replaces this path for hash boundaries
+that stay on the device.
 """
 
 from __future__ import annotations
@@ -474,16 +475,17 @@ class PartitionedOutputOperator(Operator):
                     self._lut_cache[key] = lut
             keys_u64.append(key_to_u64(page.cols[c], page.nulls[c], t, lut))
         n_logical = self.rebalancer.n if self.rebalancer is not None else n
-        # the page's one trip to the host: ids, mask, columns
-        part = hash_partition_ids(keys_u64, n_logical).cpu().numpy()
-        valid = page.valid.cpu().numpy()
+        # the page's one trip to the host: the live lanes of the ids and
+        # columns, compacted on the device first
+        keep = torch.nonzero(page.valid).squeeze(1)
+        part = hash_partition_ids(keys_u64, n_logical)[keep].cpu().numpy()
+        rows, cols, nulls = page.live_lanes(keep)
+        valid = np.ones(rows, dtype=bool)
         if self.rebalancer is not None:
             part = self._rebalanced_lanes(part, valid)
         elif self.hot_split_threshold < 1.0 and n > 1 and \
                 self.buffer.max_pending_pages is not None:
             self._split_hot(np.bincount(part[valid], minlength=n)[:n])
-        cols = [c.cpu().numpy() for c in page.cols]
-        nulls = [x.cpu().numpy() for x in page.nulls]
         for p in range(n):
             idx = np.nonzero(valid & (part == p))[0]
             if len(idx) == 0:

@@ -76,8 +76,9 @@ class DistributedQueryRunner:
         connectors = dict(connectors)
         if "system" not in connectors:
             # in-process workers share this runner's memory, so system
-            # tables work without the coordinator-routing the
-            # multi-process runner needs
+            # tables work here; the multi-process runner
+            # (parallel/process_runner.py) routes statements that read
+            # them to its coordinator instead
             from ..connectors.system import SystemConnector
 
             connectors["system"] = SystemConnector(source=self)
