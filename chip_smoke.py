@@ -98,8 +98,14 @@ Phases, one JSON line each on standard output:
              (``DeviceExchange.total_collectives``, one per hash
              boundary; none through the host exchange); the cold runs
              of q1 and q18 record their kernel calls with the step each
-             serves;
-    distributed_q1_columns, distributed_q18_columns — those calls
+             serves; then q1, q3 and q18 again over four device slabs
+             of the card (``devices=["cuda:0"] * 4``, runs ``*_d4``):
+             warm walls beside the one-slab walls, each consumer page's
+             lanes beside its partition's live rows, and every launch of
+             their cold and warm runs kept and held against the plain
+             version;
+    distributed_q1_columns, distributed_q18_columns,
+    distributed_q1_d4_columns, distributed_q18_d4_columns — those calls
              replayed like q3's, exact; timed: the partial step's page
              call with the most live rows, its merge with the most
              groups, and the final step's merge with the most groups
@@ -128,6 +134,26 @@ Phases, one JSON line each on standard output:
              cluster's warm runs (written by each worker process, read
              back onto this process's card), replayed like q3's, exact;
              the page call with the most live rows and the merge timed;
+    mesh_exchange — ``DeviceExchange`` over slabs of the card (4
+             partitions on ``["cuda:0"] * 4``, 8 on ``["cuda:0"] * 2``)
+             fed SF1's lineitem keys with 60% set to one hot key: each
+             partition's rows against a numpy oracle, the hot partition
+             split over every slab, the stats and the wall, cold and
+             sized from history;
+    mesh_q1_sf1 — q1 at SF1 as the mesh program
+             (``parallel.mesh_query.run_q1_mesh(["cuda:0"] * 4, "sf1")``)
+             under the ``exchange``, ``global_hash`` and ``auto``
+             strategies, cold and warm, and with ``per_dest=1`` (the
+             doubling backstop): rows against the oracle, retries, the
+             kernel's launches (one per slab per step), every launch
+             kept and held against the plain version, walls beside the
+             host generation each run repeats;
+    mesh_q1_columns — the exchange strategy's cold calls replayed like
+             q3's: a slab's partial call and the largest merge-final
+             timed;
+    device_step_sf1, device_step_columns — ``benchmarks.q1_device_step``
+             over a 262,144-row SF1 page against the sort path's plain
+             version on the CPU, its one call replayed and timed;
 13. explain_analyze_sf1 — EXPLAIN ANALYZE of q18 over the memory tables:
              the plan, a ``Query:`` line whose row count is the oracle's,
              the ``Memory:`` line, one stats line per operator under
@@ -204,7 +230,9 @@ Phases, one JSON line each on standard output:
    the same at the page and merge calls of every replay above
    (``q3_shapes``, ``q18_shapes``, ``memory_q3_shapes``,
    ``memory_q18_shapes``, ``distributed_q1_shapes``,
-   ``distributed_q18_shapes``, ``process_threads_q*_shapes``,
+   ``distributed_q18_shapes``, ``distributed_q1_d4_shapes``,
+   ``distributed_q18_d4_shapes``, ``mesh_q1_shapes``,
+   ``device_step_shapes``, ``process_threads_q*_shapes``,
    ``process_q*_shapes``, ``spill_q18_shapes``,
    and ``observability_*_shapes``) and of the serving
    bursts' folded calls (``serving_shapes``);
@@ -1248,16 +1276,22 @@ def memory_sf1_phase(card, tpch_warm, memory_warm):
 #: distributed_sf1: (run name, TPC-H query, session properties); the
 #: joins of q3 and q18 shuffle both sides (PARTITIONED), the last run
 #: takes the host exchange instead of the device exchange
+#: (name, query, session properties, device slabs): one slab is the
+#: runner's one device; four are ``["cuda:0"] * 4``, the mesh of the
+#: device exchange over which each consumer reads its own slab
 DISTRIBUTED_RUNS = (
-    ("q1", 1, {}),
-    ("q3", 3, {"join_distribution_type": "PARTITIONED"}),
-    ("q18", 18, {"join_distribution_type": "PARTITIONED"}),
+    ("q1", 1, {}, 1),
+    ("q3", 3, {"join_distribution_type": "PARTITIONED"}, 1),
+    ("q18", 18, {"join_distribution_type": "PARTITIONED"}, 1),
     ("q3_host_exchange", 3, {"join_distribution_type": "PARTITIONED",
-                             "device_exchange": False}),
+                             "device_exchange": False}, 1),
+    ("q1_d4", 1, {}, 4),
+    ("q3_d4", 3, {"join_distribution_type": "PARTITIONED"}, 4),
+    ("q18_d4", 18, {"join_distribution_type": "PARTITIONED"}, 4),
 )
 DISTRIBUTED_WORKERS = 4
-#: the runs whose cold run records its kernel calls for the replay
-DISTRIBUTED_RECORDED = ("q1", "q18")
+#: the runs whose cold run records its kernel calls for the timed replay
+DISTRIBUTED_RECORDED = ("q1", "q18", "q1_d4", "q18_d4")
 
 
 def _kernel_calls(res) -> int:
@@ -1270,11 +1304,36 @@ def _kernel_calls(res) -> int:
                for path in ("hash", "sort"))
 
 
+def _consumer_pages(res) -> dict:
+    """Per device boundary: the lanes of each consumer's page (its slab:
+    slabs x ``per_dest``) against the live rows of the largest
+    partition and of all partitions."""
+    return {str(fid): {"slabs": len(ex["lane_rows"]),
+                       "page_lanes": len(ex["lane_rows"]) * ex["per_dest"],
+                       "live_rows_max": max(ex["partition_rows"]),
+                       "live_rows": ex["rows"]}
+            for fid, ex in sorted(res.stats["exchanges"].items())
+            if ex and ex.get("kind") == "device"}
+
+
+def _check_kept(calls, what: str) -> float:
+    """Every kept kernel call (``kernels.record_calls``) against the
+    plain version on its inputs; returns the max abs error."""
+    from trino_tpu_torch.ops import kernels
+
+    errs = [_check_columns(cols, gid, ns, kinds, order, kernels)
+            for cols, gid, ns, kinds, order in calls]
+    if not errs:
+        raise AssertionError(f"{what}: no kernel call was kept")
+    return max(errs)
+
+
 def _exchange_summary(res) -> dict:
     """Each stage boundary's exchange stats, by producing fragment."""
     keys = ("kind", "rows", "partition_rows", "skew_ratio", "sizing_used",
-            "per_dest", "a2a_retries", "count_collectives",
-            "data_collectives", "bytes_moved")
+            "per_dest", "observed_max_pair_rows", "lane_rows",
+            "a2a_retries", "count_collectives", "data_collectives",
+            "bytes_moved")
     return {str(fid): {k: ex[k] for k in keys if k in ex}
             for fid, ex in sorted(res.stats["exchanges"].items()) if ex}
 
@@ -1289,8 +1348,13 @@ def distributed_sf1_phase(card, runner, memory_warm):
     calls (one per aggregated or merged page, partial and final steps)
     and the exchanges that ran (``DeviceExchange.total_collectives``);
     the kernel and the exchange must both have run. The cold runs of q1
-    and q18 record their kernel calls with the step each serves.
-    Returns the warm runs' launches and the recorded (calls, labels)."""
+    and q18 record their kernel calls with the step each serves. The
+    runs named ``*_d4`` repeat q1, q3 and q18 over four device slabs of
+    the card (``devices=["cuda:0"] * 4``): their warm walls stand beside
+    the one-slab walls of the same run, each consumer page's lanes
+    beside its live rows, and every launch of their cold and warm runs
+    is kept and held against the plain version. Returns the warm runs'
+    launches and the recorded (calls, labels)."""
     import torch
 
     from trino_tpu_torch.ops import kernels
@@ -1301,29 +1365,44 @@ def distributed_sf1_phase(card, runner, memory_warm):
 
     connectors = {name: conn for name, conn in
                   runner.metadata.connectors.items() if name != "system"}
-    launches, recorded = {}, {}
-    for name, qid, props in DISTRIBUTED_RUNS:
+    launches, recorded, warm_walls = {}, {}, {}
+    for name, qid, props, slabs in DISTRIBUTED_RUNS:
         session = Session(catalog="memory", schema="default")
         session.properties.update(props)
         dist = DistributedQueryRunner(connectors, session,
                                       n_workers=DISTRIBUTED_WORKERS,
-                                      desired_splits=8, device="cuda")
+                                      desired_splits=8, device="cuda",
+                                      devices=["cuda:0"] * slabs)
         sql = TPCH_QUERIES[qid]
         calls, labels = [], []
+        kept = {}
         t0 = time.perf_counter()
+        if slabs > 1 and name not in DISTRIBUTED_RECORDED:
+            kernels.record_calls(True)
         with _recorded(calls, labels) if name in DISTRIBUTED_RECORDED \
                 else contextlib.nullcontext():
             cold = dist.execute(sql)
         torch.cuda.synchronize()
         cold_s = time.perf_counter() - t0
+        if slabs > 1 and name not in DISTRIBUTED_RECORDED:
+            kept["cold"] = kernels.record_calls(False)
         _assert_same(cold, _load_expected(qid), f"distributed {name} cold")
         kernels.segment_reduce.launches = 0
         exchanges0 = DeviceExchange.total_collectives
+        if slabs > 1:
+            kernels.record_calls(True)
         t0 = time.perf_counter()
         res = dist.execute(sql)
         torch.cuda.synchronize()
         warm_s = time.perf_counter() - t0
         launches[name] = kernels.segment_reduce.launches
+        if slabs > 1:
+            kept["warm"] = kernels.record_calls(False)
+            if len(kept["warm"]) != launches[name]:
+                raise AssertionError(
+                    f"distributed {name}: {len(kept['warm'])} calls kept "
+                    f"for {launches[name]} launches")
+        warm_walls[name] = warm_s
         exchanges = DeviceExchange.total_collectives - exchanges0
         _assert_same(res, _load_expected(qid), f"distributed {name}")
         calls_made = _kernel_calls(res)
@@ -1351,11 +1430,19 @@ def distributed_sf1_phase(card, runner, memory_warm):
         steps = {}
         for label in labels:
             steps[label] = steps.get(label, 0) + 1
+        replay = {run: {"calls": len(c), "max_abs_err": _check_kept(
+            c, f"distributed {name} {run}")} for run, c in kept.items()}
+        kept.clear()
         emit({"phase": "distributed_sf1", "query": name,
               "workers": DISTRIBUTED_WORKERS, "properties": props,
+              "device_slabs": slabs,
               "rows_out": len(res.rows), "matches_oracle": True,
               "cold_s": round(cold_s, 3), "warm_s": round(warm_s, 4),
+              "one_slab_warm_s": round(warm_walls[name[:-3]], 4)
+              if slabs > 1 else None,
               "local_memory_warm_s": memory_warm.get(qid),
+              "consumer_pages": _consumer_pages(res),
+              "kept_calls_replayed": replay or None,
               "device_busy_share": _busy_share(lambda: dist.execute(sql)),
               "launches": {"segment_reduce": launches[name]},
               "cold_calls_by_step": steps or None,
@@ -1366,6 +1453,280 @@ def distributed_sf1_phase(card, runner, memory_warm):
               "peak_bytes": res.stats["memory"]["peak_bytes"],
               "card": card["nvidia_smi"]})
     return launches, recorded
+
+
+def _np_partition_ids(keys, n: int):
+    """The exchange's partition id of BIGINT keys, in numpy uint64 (the
+    oracle of ``parallel/exchange.hash_partition_ids`` for one key
+    column)."""
+    import numpy as np
+
+    k = keys.astype(np.int64).view(np.uint64)
+    with np.errstate(over="ignore"):
+        z = (k + np.uint64(0x9E3779B97F4A7C15)) * np.uint64(0xBF58476D1CE4E5B9)
+        z = z ^ (z >> np.uint64(27))
+        z = z ^ (z >> np.uint64(33))
+    return (z % np.uint64(n)).astype(np.int64)
+
+
+#: the mesh exchange's configurations: (partitions, device slabs)
+MESH_EXCHANGES = ((4, 4), (8, 2))
+#: the share of lineitem rows whose key is replaced by one hot key
+MESH_HOT_SHARE = 0.6
+
+
+def mesh_exchange_phase(card):
+    """``DeviceExchange`` over d device slabs of the one card: 4
+    partitions on ``["cuda:0"] * 4`` and 8 on ``["cuda:0"] * 2``, fed
+    SF1's lineitem (l_orderkey, l_quantity) from the generator in one
+    producer page per partition, with MESH_HOT_SHARE of the keys set to
+    one key so its partition is hot and splits over every slab. Each
+    partition's received rows must equal a numpy oracle (the partition
+    hash in uint64, the rows sorted); prints the stats (``per_dest``,
+    ``lane_rows``, ``hot_spread``, retries, bytes) and the exchange's
+    wall, cold (count pass) and warm (sized from history)."""
+    import numpy as np
+    import torch
+
+    from trino_tpu_torch import types as T
+    from trino_tpu_torch.benchmarks import scan_q18_pages
+    from trino_tpu_torch.block import Block, DevicePage, Page
+    from trino_tpu_torch.connectors.tpch import TpchConnector
+    from trino_tpu_torch.parallel import device_exchange as de
+
+    t0 = time.perf_counter()
+    host = Page.concat(scan_q18_pages(TpchConnector(page_rows=1 << 16),
+                                      "sf1", 8))
+    gen_s = time.perf_counter() - t0
+    keys = np.asarray(host.blocks[0].data, dtype=np.int64).copy()
+    vals = np.asarray(host.blocks[1].data, dtype=np.int64)
+    rng = np.random.default_rng(11)
+    keys[rng.random(keys.shape[0]) < MESH_HOT_SHARE] = int(keys[0])
+    for n, slabs in MESH_EXCHANGES:
+        devices = ["cuda:0"] * slabs
+        chunks = np.array_split(np.arange(keys.shape[0]), n)
+        pages = [DevicePage.from_page(Page(
+            [Block(T.BIGINT, keys[c]), Block(T.BIGINT, vals[c])],
+            c.shape[0]), devices[t % slabs]) for t, c in enumerate(chunks)]
+        part = _np_partition_ids(keys, n)
+        order = np.lexsort((vals, keys, part))
+        bounds = np.searchsorted(part[order], np.arange(n + 1))
+        de.SIZING_HISTORY.reset()
+        walls = []
+        for run in ("cold", "warm"):
+            ex = de.DeviceExchange(n, devices, sizing="history")
+            ex.configure([T.BIGINT, T.BIGINT], [0])
+            for t, page in enumerate(pages):
+                ex.add_page(t, page)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ex.set_no_more_pages()
+            got = [ex.pages(p) for p in range(n)]
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            for p in range(n):
+                k = np.concatenate([pg.cols[0][pg.valid].cpu().numpy()
+                                    for pg in got[p]])
+                v = np.concatenate([pg.cols[1][pg.valid].cpu().numpy()
+                                    for pg in got[p]])
+                o = np.lexsort((v, k))
+                want = order[bounds[p]:bounds[p + 1]]
+                if not (np.array_equal(k[o], keys[want])
+                        and np.array_equal(v[o], vals[want])):
+                    raise AssertionError(
+                        f"mesh exchange n={n} d={slabs} {run}: partition "
+                        f"{p} holds {k.shape[0]} rows, oracle "
+                        f"{want.shape[0]}")
+            st = ex.stats
+            if st["splits"] != 1 or list(st["hot_spread"].values()) != \
+                    [slabs]:
+                raise AssertionError(f"mesh exchange n={n} d={slabs}: the "
+                                     f"hot partition did not split: {st}")
+            emit({"phase": "mesh_exchange", "partitions": n,
+                  "device_slabs": slabs, "run": run,
+                  "rows": int(keys.shape[0]), "matches_oracle": True,
+                  "wall_s": round(walls[-1], 4),
+                  **{k_: st[k_] for k_ in (
+                      "sizing_used", "per_dest", "observed_max_pair_rows",
+                      "a2a_retries", "count_collectives",
+                      "data_collectives", "partition_rows", "lane_rows",
+                      "hot_partitions", "hot_spread", "bytes_moved")},
+                  "generate_s": round(gen_s, 3),
+                  "card": card["nvidia_smi"]})
+            del ex, got
+    de.SIZING_HISTORY.reset()
+
+
+MESH_SLABS = ["cuda:0"] * 4
+
+
+def _mesh_rows(rows):
+    """Mesh q1's rows as a result for ``_assert_same``: sorted by the
+    grouping keys, typed as q1's output."""
+    from types import SimpleNamespace
+
+    from trino_tpu_torch.benchmarks import q1_expressions, Q1_COLUMNS
+    from trino_tpu_torch.connectors.tpch import TpchConnector
+
+    md = TpchConnector().metadata()
+    cols = {c.name: c for c in md.get_columns(
+        md.get_table_handle("sf1", "lineitem"))}
+    types = [cols[c].type for c in Q1_COLUMNS]
+    projections, _filt, aggs = q1_expressions(types)
+    out_types = [p.type for p in projections[:2]] + \
+        [a.output_type for a in aggs]
+    return SimpleNamespace(rows=sorted(rows, key=lambda r: (r[0], r[1])),
+                           types=out_types)
+
+
+def mesh_q1_sf1_phase(card):
+    """q1 at SF1 as the mesh program over four slabs of the card
+    (``run_q1_mesh(["cuda:0"] * 4, "sf1", agg_strategy=...)``) for the
+    ``exchange``, ``global_hash`` and ``auto`` strategies, each cold and
+    warm, and once with ``per_dest=1`` (the doubling backstop): rows
+    against tests/sf1_expected.py's q1, retries, the strategy the run
+    took, the kernel's launches (one per slab for the partial step, one
+    more per slab for the exchange's merge-final), every launch kept and
+    held against the plain version, and each wall beside the host
+    generation of the same scan (which every run repeats). Returns the
+    warm runs' launches and the exchange strategy's cold calls."""
+    import torch
+
+    from trino_tpu_torch.benchmarks import scan_q1_pages
+    from trino_tpu_torch.connectors.tpch import TpchConnector
+    from trino_tpu_torch.ops import kernels
+    from trino_tpu_torch.parallel.mesh_query import run_q1_mesh
+
+    t0 = time.perf_counter()
+    scan_q1_pages(TpchConnector(page_rows=1 << 14), "sf1", len(MESH_SLABS))
+    gen_s = time.perf_counter() - t0
+    expected = _load_expected(1)
+    launches, timed = {}, None
+    runs = [(s, {"agg_strategy": s}, run) for s in
+            ("exchange", "global_hash", "auto") for run in ("cold", "warm")]
+    runs.append(("backstop", {"agg_strategy": "exchange", "per_dest": 1},
+                 "cold"))
+    for name, kwargs, run in runs:
+        stats = {}
+        kernels.segment_reduce.launches = 0
+        kernels.record_calls(True)
+        t0 = time.perf_counter()
+        rows, retries, _conn, _pages = run_q1_mesh(
+            MESH_SLABS, "sf1", stats_out=stats, **kwargs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        calls = kernels.record_calls(False)
+        made = kernels.segment_reduce.launches
+        _assert_same(_mesh_rows(rows), expected, f"mesh q1 {name} {run}")
+        strategy = stats["agg_strategy"]
+        # the partial step once per slab; the exchange's merge-final
+        # once per slab per attempt (the backstop re-runs only it)
+        want = len(MESH_SLABS) * (
+            2 + retries if strategy == "exchange" else 1)
+        if made != want or len(calls) != made:
+            raise AssertionError(
+                f"mesh q1 {name} {run}: {made} launches, {len(calls)} "
+                f"kept, want {want}")
+        if (name == "backstop") != (retries > 0):
+            raise AssertionError(f"mesh q1 {name}: {retries} retries")
+        if name == "auto" and strategy != "global-hash":
+            raise AssertionError(f"mesh q1 auto took {strategy}")
+        err = _check_kept(calls, f"mesh q1 {name} {run}")
+        if name == "exchange" and run == "cold":
+            timed = calls
+        del calls
+        if run == "warm":
+            launches[f"mesh_q1_{name}"] = made
+        emit({"phase": "mesh_q1_sf1", "strategy": name, "run": run,
+              "device_slabs": len(MESH_SLABS), "rows_out": len(rows),
+              "matches_oracle": True, "agg_strategy": strategy,
+              "a2a_retries": retries, "wall_s": round(wall, 4),
+              "generate_s": round(gen_s, 3),
+              "launches": {"segment_reduce": made},
+              "kept_calls_max_abs_err": err,
+              "stats": {k: stats[k] for k in (
+                  "per_dest", "table_slots", "partition_rows",
+                  "data_collectives", "strategy_detail") if k in stats},
+              "card": card["nvidia_smi"]})
+    return launches, timed
+
+
+def device_step_sf1_phase(card):
+    """``q1_device_step`` over one SF1 lineitem page of 262,144 rows (the
+    first pages of the generator's scan, coalesced as q1's scan does):
+    its groups against the sort-based ``group_reduce`` of the same
+    filtered page, run on the CPU through the plain version (keys and
+    the 15 states exactly), its one kernel launch kept and held against
+    the plain version. Returns the kept call."""
+    import numpy as np
+    import torch
+
+    from trino_tpu_torch.benchmarks import (q1_device_step, q1_expressions,
+                                            scan_table_pages, Q1_COLUMNS)
+    from trino_tpu_torch.block import DevicePage, Page
+    from trino_tpu_torch.connectors.tpch import TpchConnector
+    from trino_tpu_torch.ops import kernels
+    from trino_tpu_torch.ops.aggregation import (_init_states, _state_plan,
+                                                 group_reduce)
+    from trino_tpu_torch.ops.sortkeys import group_operands
+
+    pages, rows = [], 0
+    for p in scan_table_pages(TpchConnector(page_rows=1 << 16), "sf1",
+                              "lineitem", Q1_COLUMNS, 8):
+        if rows + p.num_rows > PAGE_ROWS:
+            break
+        pages.append(p)
+        rows += p.num_rows
+    dp = DevicePage.from_page(Page.concat(pages), device="cuda")
+    proc, step = q1_device_step(dp.types)
+    luts = proc._fill_luts(dp.dictionaries, dp.device)
+    args = (tuple(dp.cols), tuple(dp.nulls), dp.valid, luts)
+    step(*args)                                   # warm
+    kernels.segment_reduce.launches = 0
+    kernels.record_calls(True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    keys, _kn, reduced, out_valid = step(*args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    calls = kernels.record_calls(False)
+    made = kernels.segment_reduce.launches
+    if made != 1 or len(calls) != 1:
+        raise AssertionError(f"q1_device_step: {made} launches, "
+                             f"{len(calls)} kept, want 1")
+    err = _check_kept(calls, "q1_device_step")
+    # the oracle: the sort path's plain version on the CPU
+    _proj, _filt, aggs = q1_expressions(dp.types)
+    pcols, pnulls, pvalid = proc._run(*args)
+    pcols = [c.cpu() for c in pcols]
+    pnulls = [x.cpu() for x in pnulls]
+    pvalid = pvalid.cpu()
+    key_ops = []
+    for c in (0, 1):
+        key_ops.extend(group_operands(pcols[c], pnulls[c],
+                                      proc.output_types[c]))
+    states = []
+    for a in aggs:
+        states.extend(_init_states(a, pcols, pnulls, pvalid,
+                                   [None] * len(pcols), {}))
+    kinds = [k for a in aggs for (k, _) in _state_plan(a)]
+    skeys, _sk, sred, svalid = group_reduce(key_ops, [pcols[0], pcols[1]],
+                                            states, pvalid, kinds)
+
+    def groups(k, r, v):
+        live = np.nonzero(v.cpu().numpy())[0]
+        cols = [x.cpu().numpy()[live] for x in list(k) + list(r)]
+        return sorted(zip(*[c.tolist() for c in cols]))
+
+    got, want = groups(keys, reduced, out_valid), groups(skeys, sred, svalid)
+    if got != want:
+        raise AssertionError(f"q1_device_step: {got} != {want}")
+    emit({"phase": "device_step_sf1", "page_rows": rows,
+          "lanes": int(dp.valid.shape[0]), "groups": len(got),
+          "matches_sort_path": True, "launches": {"segment_reduce": made},
+          "kept_calls_max_abs_err": err, "step_wall_s": round(wall, 5),
+          "card": card["nvidia_smi"]})
+    return calls
 
 
 #: the multi-process cluster: a coordinator and this many worker
@@ -2562,6 +2923,25 @@ def main() -> int:
             card, tpch_warm, dump)
     launches.update(process_launches)
     replayed.update(process_shapes)
+    mesh_exchange_phase(card)
+    mesh_launches, mesh_calls = mesh_q1_sf1_phase(card)
+    launches.update(mesh_launches)
+    half = len(mesh_calls) // 2          # partial calls, then merge-finals
+
+    def _live(i):
+        gid = mesh_calls[i][1]
+        return int((gid < gid.shape[0]).sum())
+
+    replayed["mesh_q1"] = columns_replay_phase(
+        "mesh_q1_columns", mesh_calls, "live",
+        picks={"page": max(range(half), key=_live),
+               "merge": max(range(half, len(mesh_calls)), key=_live)})
+    del mesh_calls
+    step_calls = device_step_sf1_phase(card)
+    launches["device_step"] = len(step_calls)
+    replayed["device_step"] = columns_replay_phase(
+        "device_step_columns", step_calls, "live", picks={"page": 0})
+    del step_calls
     launches["explain_analyze_q18"] = explain_analyze_phase(card, runner)
     spill_launches, spill_calls = spill_phase(card, runner, peaks)
     launches.update(spill_launches)

@@ -617,3 +617,72 @@ def test_process_cluster_on_the_card_equals_the_cpu(dev, tmp_path):
                         cols, gid, ns, kinds, order)
                     for g, w in zip(got, want):
                         assert torch.equal(g, w), (proc, qid)
+
+
+def test_mesh_q1_on_four_slabs_of_the_card(dev):
+    """Mesh q1 at micro over four slabs of the one card, for the
+    exchange and the global-hash strategies: the rows equal the same
+    mesh over four CPU slabs, the kernel launched once per slab in the
+    partial step (and once per slab in the exchange's merge-final), and
+    every launch, kept, equals the plain version on its inputs."""
+    from trino_tpu_torch.parallel.mesh_query import run_q1_mesh
+
+    slabs = [f"{dev.type}:{dev.index or 0}"] * 4
+    for strategy, merges in (("exchange", 4), ("global_hash", 0)):
+        want, _r, _c, _p = run_q1_mesh(["cpu"] * 4, "micro",
+                                       agg_strategy=strategy)
+        kernels.segment_reduce.launches = 0
+        kernels.record_calls(True)
+        got, retries, _c, _p = run_q1_mesh(slabs, "micro",
+                                           agg_strategy=strategy)
+        calls = kernels.record_calls(False)
+        assert sorted(got) == sorted(want) and len(got) == 4
+        assert retries == 0
+        assert kernels.segment_reduce.launches == len(calls) == 4 + merges
+        for cols, gid, ns, kinds, order in calls:
+            got_cols = kernels.segment_reduce_columns(cols, gid, ns, kinds,
+                                                      order)
+            want_cols = kernels.segment_reduce_columns_reference(
+                cols, gid, ns, kinds, order)
+            for g, w in zip(got_cols, want_cols):
+                assert torch.equal(g, w)
+
+
+def test_mesh_device_exchange_on_the_card_equals_the_cpu(dev):
+    """``DeviceExchange(4, ["cuda:0"] * 4)`` over a skewed key column
+    (a hot key) equals the same exchange over four CPU slabs: each
+    partition's rows as sorted lists, and the stats exactly."""
+    from trino_tpu_torch import types as T
+    from trino_tpu_torch.block import DevicePage, Page
+    from trino_tpu_torch.parallel import device_exchange as de
+
+    rng = np.random.default_rng(41)
+    pages = []
+    for _ in range(4):
+        keys = np.where(rng.random(5000) < 0.7, 7,
+                        rng.integers(0, 100_000, 5000))
+        pages.append(Page.from_pylists(
+            [T.BIGINT, T.BIGINT],
+            [keys.tolist(), rng.integers(0, 1000, 5000).tolist()]))
+    slab = f"{dev.type}:{dev.index or 0}"
+    out = {}
+    for devices in (["cpu"] * 4, [slab] * 4):
+        de.SIZING_HISTORY.reset()
+        ex = de.DeviceExchange(4, devices, sizing="exact")
+        ex.configure([T.BIGINT, T.BIGINT], [0])
+        for t, p in enumerate(pages):
+            ex.add_page(t, DevicePage.from_page(p, devices[t]))
+        ex.set_no_more_pages()
+        parts = []
+        for part in range(4):
+            rows = []
+            for pg in ex.pages(part):
+                assert pg.valid.device.type == torch.device(devices[0]).type
+                rows.extend(pg.to_page().to_rows())
+            parts.append(sorted(rows))
+        out[devices[0]] = (parts, ex.stats)
+    de.SIZING_HISTORY.reset()
+    (cpu_parts, cpu_stats), (card_parts, card_stats) = out.values()
+    assert card_parts == cpu_parts
+    assert card_stats == cpu_stats
+    assert card_stats["splits"] == 1 and card_stats["split_ways"] == 4

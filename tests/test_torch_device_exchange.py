@@ -10,8 +10,10 @@ NaN, +-0.0, infinities and out-of-range values, VARCHAR from two pools
 holding the same strings under other codes, NULLs in every column, and
 1 to 8 key columns.
 
-The exchange itself runs on one device in the port; the JAX engine's is
-given one device (``jax.devices()[:1]``, or ``jax.devices`` monkeypatched
+The exchange itself runs here on one device (the d > 1 cases are in
+``test_torch_mesh_exchange.py``, apart from the two-device cases that
+replaced this file's refusal checks); the JAX engine's is given one
+device (``jax.devices()[:1]``, or ``jax.devices`` monkeypatched
 for a runner, as tests/test_device_exchange.py does), and the two must
 record equal ``stats`` (per-partition counts, skew, ``per_dest``,
 retries, collectives, bytes) and deliver equal rows per partition, in
@@ -27,8 +29,11 @@ import numpy as np
 import pytest
 import torch
 
+from functools import partial
+
 import jax
 import jax.numpy as jnp
+from jax.sharding import Mesh, PartitionSpec as P
 from trino_tpu import jit_stats as jjit
 from trino_tpu import types as JT
 from trino_tpu.block import DevicePage as JDevicePage
@@ -40,6 +45,7 @@ from trino_tpu.parallel import device_exchange as jde
 from trino_tpu.parallel import exchange as jex
 from trino_tpu.parallel import rebalancer as jreb
 from trino_tpu.parallel.distributed import DistributedQueryRunner as JDist
+from trino_tpu.parallel.exchange import shard_map
 from trino_tpu.sql.analyzer import Session as JSession
 from trino_tpu.sql.parser import parse_statement as j_parse
 from trino_tpu.telemetry import stats_store as jss
@@ -180,7 +186,7 @@ def test_partition_histogram_and_send_grid():
     np.testing.assert_array_equal(got, want)
     vals = np.arange(n, dtype=np.int64)
     for per_dest in (int(want.max()), 64):
-        (cols,), (nl,), gv, over = pex.repartition_a2a(
+        (cols,), (nl,), gv, over = pex.send_grid(
             (torch.from_numpy(vals),), (torch.zeros(n, dtype=torch.bool),),
             torch.from_numpy(valid), torch.from_numpy(part), parts,
             per_dest)
@@ -192,11 +198,37 @@ def test_partition_histogram_and_send_grid():
             # a stable sort keeps each destination's first rows
             assert rows == live[:per_dest]
         assert int(over) == int(np.maximum(want - per_dest, 0).sum())
-    with pytest.raises(PT.TrinoError) as e:
-        pex.repartition_a2a((), (), torch.from_numpy(valid),
-                            torch.from_numpy(part), parts, 64,
-                            devices=["cuda:0", "cuda:1"])
-    assert e.value.code == "NOT_SUPPORTED"
+    # two senders over two devices (refused until the mesh slice): the
+    # all-to-all gives receiver j lane block j of both grids, the rows
+    # of the JAX engine's collective over two devices as multisets
+    mesh = Mesh(np.asarray(jax.devices()[:2]), ("x",))
+    halves = [slice(0, n // 2), slice(n // 2, n)]
+    dest = (part % 2).astype(np.int32)
+    per_dest = n // 2
+
+    @partial(shard_map, mesh=mesh, in_specs=(P("x"),) * 3,
+             out_specs=(P("x"),) * 3, check_vma=False)
+    def jprog(v, va, p):
+        rc, _rn, rv, over = jex.repartition_a2a(
+            (v[0],), (jnp.zeros_like(va[0]),), va[0], p[0],
+            num_partitions=2, per_dest=per_dest, axis_name="x")
+        return rc[0][None], rv[None], over[None]
+
+    jc, jv, jo = (np.asarray(a) for a in jprog(
+        jnp.asarray(vals.reshape(2, -1)), jnp.asarray(valid.reshape(2, -1)),
+        jnp.asarray(dest.reshape(2, -1))))
+    rc, _rn, rv, over = pex.repartition_a2a(
+        [(torch.from_numpy(vals[h]),) for h in halves],
+        [(torch.zeros(n // 2, dtype=torch.bool),) for _ in halves],
+        [torch.from_numpy(valid[h]) for h in halves],
+        [torch.from_numpy(dest[h]) for h in halves], 2, per_dest,
+        devices=["cpu", "cpu"])
+    assert [int(o) for o in over] == jo.tolist() == [0, 0]
+    for j in range(2):
+        got = rc[j][0].numpy()[rv[j].numpy()]
+        assert sorted(got.tolist()) == sorted(jc[j][jv[j]].tolist())
+        assert sorted(got.tolist()) == \
+            sorted(vals[valid & (dest == j)].tolist())
 
 
 def test_salted_need_bound_equals_jax():
@@ -383,9 +415,25 @@ def test_string_pools_unify_before_the_exchange():
 
 
 def test_more_than_one_device_is_refused():
-    with pytest.raises(PT.TrinoError) as e:
-        pde.DeviceExchange(4, ["cuda:0", "cuda:1"])
-    assert e.value.code == "NOT_SUPPORTED"
+    """More than one device was refused until the mesh slice; now an
+    exchange over two CPU slabs equals the JAX engine's over two
+    devices: rows per partition, stats (the hot partition split over
+    both receivers) and collectives."""
+    out = []
+    for engine in ("jax", "torch"):
+        if engine == "jax":
+            ex = jde.DeviceExchange(4, jax.devices()[:2], sizing="exact")
+            ex.configure([JT.BIGINT, JT.BIGINT], [0])
+        else:
+            ex = pde.DeviceExchange(4, ["cpu", "cpu"], sizing="exact")
+            ex.configure([PT.BIGINT, PT.BIGINT], [0])
+        _feed(ex, engine, 4, 500, 0.9, 23)
+        ex.set_no_more_pages()
+        out.append(ex)
+    jx, px = out
+    assert px.d == 2
+    _same_exchange(jx, px)
+    assert px.stats["splits"] == 1 and px.stats["split_ways"] == 2
 
 
 def test_host_buffer_stats_parity():

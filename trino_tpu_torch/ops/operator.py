@@ -277,11 +277,15 @@ class OffsetOperator(Operator):
 
 class ValuesOperator(SourceOperator):
     """Inline literal rows (reference: operator/ValuesOperator.java),
-    uploaded to ``device`` one page at a time."""
+    uploaded to ``device`` one page at a time. ``coalesce_rows`` applies
+    the scan's small-page coalescing to pre-materialized host pages (the
+    benchmark builders' values-fed pipelines)."""
 
-    def __init__(self, pages: Sequence[Page], device):
+    def __init__(self, pages: Sequence[Page], device,
+                 coalesce_rows: Optional[int] = None):
         self._pages = list(pages)
         self.device = device
+        self.coalesce_rows = coalesce_rows
         self._done = False
 
     def add_split(self, split):
@@ -291,7 +295,16 @@ class ValuesOperator(SourceOperator):
         if not self._pages:
             self._done = True
             return None
-        return DevicePage.from_page(self._pages.pop(0), device=self.device)
+        if not self.coalesce_rows:
+            return DevicePage.from_page(self._pages.pop(0),
+                                        device=self.device)
+        batch, rows = [], 0
+        while self._pages and rows < self.coalesce_rows:
+            batch.append(self._pages.pop(0))
+            rows += batch[-1].num_rows
+        return DevicePage.from_page(batch[0] if len(batch) == 1
+                                    else Page.concat(batch),
+                                    device=self.device)
 
     def is_finished(self) -> bool:
         return self._done

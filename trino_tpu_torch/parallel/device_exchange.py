@@ -1,5 +1,5 @@
-"""Device stage exchange: the engine's hash shuffle as ONE device
-program over every producer's rows.
+"""Device stage exchange: the engine's hash shuffle as ONE program over
+every producer's rows and the d device slabs.
 
 Reference analog: the ENTIRE pipelined data plane of a hash exchange —
 ``operator/output/PartitionedOutputOperator.java`` + ``PagePartitioner``
@@ -11,18 +11,19 @@ into per-destination lanes, and every consumer task reads the rows of
 its hash partition from them. No serialization, no host round-trip, no
 HTTP.
 
-The JAX engine's ``trino_tpu/parallel/device_exchange.py`` on torch, on
-ONE device: its ``jax.devices()`` mesh of d devices is here a device
-list of length one, so p partitions lie on one slab (partition p on
-device ``p % d`` = 0), partition ids ride along as a carried channel and
-each consumer masks its partition out of the slab. The count pass and
-the data program run their per-sender work once, and their psum/pmax
-and ``all_to_all`` over one sender are the identity: no collective is
-called. Several devices wait for the multi-card slice; the exchange
-refuses them (``repartition_a2a``). With one receiver no partition is
-ever split (splitting spreads a hot partition over receivers), so the
-hot-split path is kept for that slice and sizes exactly as in the JAX
-engine.
+The JAX engine's ``trino_tpu/parallel/device_exchange.py`` on torch.
+Its ``jax.devices()`` mesh of d devices is a device list here, one
+process driving d slabs as the JAX engine's single controller does:
+producer task t's pages land in slab ``t % d`` on ``devices[t % d]``,
+partition p lives on slab ``p % d``, partition ids ride along as a
+carried channel and each consumer masks its partition out of its slab
+(with d = n each slab holds its own partition). The count pass runs its
+per-sender histograms slab by slab; its psum is a sum and its pmax a max
+over the slabs. The data program lays out every sender's grid and runs
+``repartition_a2a``'s all-to-all (receiver j takes lane block j of every
+sender). Devices may repeat (``["cpu"] * d`` in the tests, ``["cuda:0"]
+* 4`` on one card). With one receiver no partition is ever split
+(splitting spreads a hot partition over receivers).
 
 String columns: pools are unified BEFORE the collective (host builds a
 code-remap LUT per divergent pool, devices apply it as a gather), and
@@ -235,18 +236,16 @@ class DeviceExchange:
                  history_key: Optional[tuple] = None,
                  hot_split_threshold: float = 0.5):
         # p-partitions-on-d-devices layout: with fewer devices than
-        # partitions (the one device being the case here), partition p
+        # partitions (one card being the important case), partition p
         # lives on device p % d; partition ids are carried through the
-        # exchange and consumers split their device's slab by mask
+        # exchange and consumers split their device's slab by mask.
+        # d == n degenerates to the exact 1:1 mapping.
         assert len(devices) >= 1
         assert sizing in SIZING_MODES, sizing
         self.n = n_partitions
-        self.devices = list(devices)[:min(n_partitions, len(devices))]
+        self.devices = [torch.device(x) for x in
+                        list(devices)[:min(n_partitions, len(devices))]]
         self.d = len(self.devices)
-        if self.d > 1:
-            raise T.TrinoError(
-                f"the device exchange runs on one device; {self.d} "
-                "devices need the multi-card exchange", "NOT_SUPPORTED")
         self.sizing = sizing
         #: history key override (defaults to the exchange shape —
         #: types/key_channels/n/d — at collect time)
@@ -348,7 +347,6 @@ class DeviceExchange:
         if types_ is None or not self._by_task:
             return [[] for _ in range(n)]
         nch = len(types_)
-        device = self.devices[0]
 
         # unify string pools: remap every divergent pool's codes into the
         # first pool seen per channel (device gather through a host LUT)
@@ -372,53 +370,49 @@ class DeviceExchange:
                                               0, len(remap) - 1)]
             return cols
 
-        # stack per-DEVICE rows (padded lanes + valid masks carried
-        # as-is): producer task t's pages land in device slab t % d
+        # per-DEVICE slabs (padded lanes + valid masks carried as-is):
+        # producer task t's pages land in slab t % d, on devices[t % d],
+        # every slab padded to one capacity (the salting lane layout
+        # depends on it: the same lanes as the JAX engine's)
         dev_pages: List[List[DevicePage]] = [[] for _ in range(d)]
         for t in sorted(self._by_task):
             dev_pages[t % d].extend(self._by_task[t])
         dev_caps = [sum(p.capacity for p in ps) for ps in dev_pages]
         cap = padded_size(max(max(dev_caps), 16))
-        s_cols = [[] for _ in range(nch)]
-        s_nulls = [[] for _ in range(nch)]
-        s_valid = []
 
-        def pad(a):
+        def pad(a, device):
+            a = a.to(device)
             k = a.shape[0]
             if k == cap:
                 return a
             return torch.cat([a, torch.zeros((cap - k,), dtype=a.dtype,
-                                             device=a.device)])
+                                             device=device)])
 
-        for ps in dev_pages:
+        cols, nulls, valid = [], [], []
+        for ps, device in zip(dev_pages, self.devices):
             page_cols = [unified_cols(p) for p in ps]
-            for c in range(nch):
-                if ps:
-                    s_cols[c].append(pad(torch.cat(
-                        [pc[c] for pc in page_cols])))
-                    s_nulls[c].append(pad(torch.cat(
-                        [p.nulls[c] for p in ps])))
-                else:
-                    s_cols[c].append(torch.zeros(
-                        (cap,), dtype=storage_dtype(types_[c]),
-                        device=device))
-                    s_nulls[c].append(torch.zeros((cap,), dtype=torch.bool,
-                                                  device=device))
             if ps:
-                s_valid.append(pad(torch.cat([p.valid for p in ps])))
+                cols.append(tuple(pad(torch.cat([pc[c] for pc in page_cols]),
+                                      device) for c in range(nch)))
+                nulls.append(tuple(pad(torch.cat([p.nulls[c] for p in ps]),
+                                       device) for c in range(nch)))
+                valid.append(pad(torch.cat([p.valid for p in ps]), device))
             else:
-                s_valid.append(torch.zeros((cap,), dtype=torch.bool,
-                                           device=device))
-
-        cols = tuple(torch.stack(s_cols[c]) for c in range(nch))
-        nulls = tuple(torch.stack(s_nulls[c]) for c in range(nch))
-        valid = torch.stack(s_valid)
-        # one read for the whole exchange (not one per page)
-        if not bool(valid.any()):
+                cols.append(tuple(torch.zeros(
+                    (cap,), dtype=storage_dtype(types_[c]), device=device)
+                    for c in range(nch)))
+                nulls.append(tuple(torch.zeros((cap,), dtype=torch.bool,
+                                               device=device)
+                                   for _ in range(nch)))
+                valid.append(torch.zeros((cap,), dtype=torch.bool,
+                                         device=device))
+        # one read per slab (not one per page)
+        if not any(bool(v.any()) for v in valid):
             return [[] for _ in range(n)]
 
-        luts = tuple(lut_tensor(string_hash_lut(target[c]), device)
-                     for c in self.key_channels if types_[c].is_string)
+        luts = [tuple(lut_tensor(string_hash_lut(target[c]), device)
+                      for c in self.key_channels if types_[c].is_string)
+                for device in self.devices]
 
         devs = tuple(str(x) for x in self.devices)
         tkey = tuple(types_)
@@ -450,7 +444,7 @@ class DeviceExchange:
             # one host read sizes the lanes.
             cprog = _count_program(devs, tkey, kkey, n, d)
             hist, need, pair_max = cprog(cols, nulls, valid, luts)
-            hist = hist.cpu().numpy()[0]
+            hist = hist.cpu().numpy()
             self.count_collectives += 1
             with DeviceExchange._total_lock:
                 DeviceExchange.total_count_collectives += 1
@@ -459,11 +453,11 @@ class DeviceExchange:
                 hot = {p for p in range(n)
                        if hist[p] / total > self.hot_split_threshold}
             if hot:
-                pair_np = pair_max.cpu().numpy()[0].reshape(n, d)
+                pair_np = pair_max.cpu().numpy().reshape(n, d)
                 per_dest = padded_size(max(_salted_need_bound(
                     pair_np, hot, n, d), 16))
             else:
-                per_dest = padded_size(max(int(need.cpu()[0]), 16))
+                per_dest = padded_size(max(int(need), 16))
         elif sizing == "legacy":
             per_dest = padded_size(max(32, (2 * cap) // d))
         per_dest = min(per_dest, cap)
@@ -472,7 +466,8 @@ class DeviceExchange:
         hot_mask = np.zeros((n,), dtype=np.int32)
         for p in hot:
             hot_mask[p] = 1
-        hot_mask = torch.from_numpy(hot_mask).to(device)
+        hot_mask = [torch.from_numpy(hot_mask).to(device)
+                    for device in self.devices]
         lanes_moved = 0
         while True:
             prog = _exchange_program(devs, tkey, kkey, n, d, per_dest)
@@ -480,7 +475,7 @@ class DeviceExchange:
                 cols, nulls, valid, luts, hot_mask)
             self.data_collectives += 1
             lanes_moved += d * d * per_dest  # at THIS attempt's capacity
-            if int(overflow.sum()) == 0:
+            if sum(int(o) for o in overflow) == 0:
                 break
             if per_dest >= cap:
                 raise T.TrinoError(
@@ -502,8 +497,8 @@ class DeviceExchange:
         # pass in any mode): receiver r's lanes [s*per_dest,
         # (s+1)*per_dest) came from sender s, so per-(receiver, sender)
         # valid counts give the exact max pair load actually observed
-        ov = out_valid.cpu().numpy()
-        op_ids = out_part.cpu().numpy()
+        ov = np.stack([v.cpu().numpy() for v in out_valid])
+        op_ids = np.stack([x.cpu().numpy() for x in out_part])
         pair_rows = ov.reshape(d, d, per_dest).sum(axis=2)
         observed_max = int(pair_rows.max()) if pair_rows.size else 0
         partition_rows = np.bincount(op_ids[ov], minlength=n)[:n]
@@ -629,24 +624,23 @@ def _normalized_keys(cols, nulls, luts, types_: tuple,
 def _count_program(devices: tuple, types_: tuple, key_channels: tuple,
                    n: int, d: int):
     """The count-first pass: each sender histograms its live rows by
-    destination device, a sum over senders gives the global
-    per-partition row counts and a max the exact max (sender, dest) lane
-    load — O(n*d) scalars, negligible vs the payload it sizes. Also
-    maxes the per-(partition, sub-bucket) histogram (n*d scalars) so the
-    host can size the SALTED map exactly if it then decides to split a
-    hot partition — one count pass covers both layouts. Memoized on
-    (devices, types, keys, n, d) like the JAX engine's builder; its
-    first call at each sender capacity counts one ``jit_stats`` first
-    call. On one device the per-sender loop runs once and the
-    sum/max over senders is the identity: no collective."""
+    destination device, a sum over senders (the JAX ``psum``) gives the
+    global per-partition row counts and a max (``pmax``) the exact max
+    (sender, dest) lane load — O(n*d) scalars, negligible vs the payload
+    it sizes. Also maxes the per-(partition, sub-bucket) histogram (n*d
+    scalars) so the host can size the SALTED map exactly if it then
+    decides to split a hot partition — one count pass covers both
+    layouts. Memoized on (devices, types, keys, n, d) like the JAX
+    engine's builder; its first call at each sender capacity counts one
+    ``jit_stats`` first call. Takes per-slab lists (slab s on
+    ``devices[s]``); the reductions over slabs run on the first slab's
+    device."""
 
     def count(cols, nulls, valid, luts):
         hists, needs, pairs = [], [], []
-        for s in range(valid.shape[0]):
-            scols = tuple(c[s] for c in cols)
-            snulls = tuple(x[s] for x in nulls)
-            svalid = valid[s]
-            keys = _normalized_keys(scols, snulls, luts, types_,
+        home = valid[0].device
+        for scols, snulls, svalid, sluts in zip(cols, nulls, valid, luts):
+            keys = _normalized_keys(scols, snulls, sluts, types_,
                                     key_channels)
             part = hash_partition_ids(keys, n)
             dest = part % d if d < n else part
@@ -655,13 +649,15 @@ def _count_program(devices: tuple, types_: tuple, key_channels: tuple,
             # split run silently overflows
             sub = torch.arange(svalid.shape[0], dtype=torch.int32,
                                device=svalid.device) % d
-            hists.append(partition_histogram(part, svalid, n))
-            pairs.append(partition_histogram(part * d + sub, svalid, n * d))
-            needs.append(torch.max(partition_histogram(dest, svalid, d)))
+            hists.append(partition_histogram(part, svalid, n).to(home))
+            pairs.append(partition_histogram(part * d + sub, svalid,
+                                             n * d).to(home))
+            needs.append(torch.max(partition_histogram(dest, svalid,
+                                                       d)).to(home))
         total_hist = torch.stack(hists).sum(dim=0)
         max_need = torch.stack(needs).max()
         pair_max = torch.stack(pairs).max(dim=0).values
-        return total_hist[None], max_need[None], pair_max[None]
+        return total_hist, max_need, pair_max
 
     # profiled (telemetry.profiler) under the builder's own memo key:
     # same-shape but different programs never alias
@@ -673,58 +669,50 @@ def _count_program(devices: tuple, types_: tuple, key_channels: tuple,
 def _exchange_program(devices: tuple, types_: tuple, key_channels: tuple,
                       n: int, d: int, per_dest: int):
     """Build the shuffle: normalize keys -> partition ids -> bucket-sort
-    -> per-destination lanes. Memoized on (devices, types, keys, n, d,
-    per_dest) so repeat shapes reuse the program (and count no new
-    first call).
+    -> the all-to-all over the d slabs. Memoized on (devices, types,
+    keys, n, d, per_dest) so repeat shapes reuse the program (and count
+    no new first call).
 
     With d < n the exchange routes to DEVICE p % d and the partition id
     rides along as an extra carried channel so the consumer can split
     its slab; with d == n device == partition and the carry is still
     returned (cheap) but unused.
 
-    ``hot`` is an (n,) int32 mask TENSOR of hot partitions: a hot
-    partition's rows salt their destination with a row-index-derived
+    ``hot`` is a per-slab (n,) int32 mask TENSOR of hot partitions: a
+    hot partition's rows salt their destination with a row-index-derived
     sub-bucket — ``(home + lane_index % d) % d`` — spreading ONE
     partition's rows across all d receivers while the carried original
     partition id lets the consumer gather re-merge them. A tensor (not
     a memo key) so split and unsplit runs share the program.
 
     Receiver r's slab is the concatenation of every sender's lane block
-    r (the all-to-all); on one device that is the one sender's grid."""
+    r (``repartition_a2a``), on ``devices[r]``. Returns (cols, nulls)
+    as per-column lists of receiver slabs, the receivers' valid and
+    carried partition-id slabs, and each sender's overflow count."""
 
     def exchanged(cols, nulls, valid, luts, hot):
-        grids = []
-        for s in range(valid.shape[0]):
-            scols = tuple(c[s] for c in cols)
-            snulls = tuple(x[s] for x in nulls)
-            svalid = valid[s]
-            keys = _normalized_keys(scols, snulls, luts, types_,
+        send_cols, send_nulls, dests = [], [], []
+        for scols, snulls, svalid, sluts, shot in zip(cols, nulls, valid,
+                                                      luts, hot):
+            keys = _normalized_keys(scols, snulls, sluts, types_,
                                     key_channels)
             part = hash_partition_ids(keys, n)
             base = part % d  # == part when d == n (part < n)
             sub = torch.arange(svalid.shape[0], dtype=torch.int32,
                                device=svalid.device) % d
-            dest = torch.where(hot[part.to(torch.int64)] > 0,
-                               (base + sub) % d, base)
+            dests.append(torch.where(shot[part.to(torch.int64)] > 0,
+                                     (base + sub) % d, base))
             false_ = torch.zeros(svalid.shape, dtype=torch.bool,
                                  device=svalid.device)
-            grids.append(repartition_a2a(
-                scols + (part,), snulls + (false_,), svalid, dest,
-                num_partitions=d, per_dest=per_dest, devices=devices))
-
-        def receive(pick):
-            # receiver r <- lane block r of every sender, in sender order
-            return torch.stack([
-                torch.cat([pick(g).reshape(d, per_dest)[r]
-                           for g in grids]) for r in range(d)])
-
-        ncols = len(cols)
-        ex_cols = [receive(lambda g, i=i: g[0][i]) for i in range(ncols + 1)]
-        ex_nulls = [receive(lambda g, i=i: g[1][i]) for i in range(ncols)]
-        ex_valid = receive(lambda g: g[2])
-        overflow = torch.stack([g[3] for g in grids])
-        return (tuple(ex_cols[:-1]), tuple(ex_nulls), ex_valid,
-                ex_cols[-1], overflow)
+            send_cols.append(tuple(scols) + (part,))
+            send_nulls.append(tuple(snulls) + (false_,))
+        ex_cols, ex_nulls, ex_valid, overflow = repartition_a2a(
+            send_cols, send_nulls, list(valid), dests, num_partitions=d,
+            per_dest=per_dest, devices=devices)
+        ncols = len(cols[0])
+        return (tuple([r[i] for r in ex_cols] for i in range(ncols)),
+                tuple([r[i] for r in ex_nulls] for i in range(ncols)),
+                ex_valid, [r[ncols] for r in ex_cols], overflow)
 
     return instrument("device_exchange_program", exchanged,
                       key=(devices, types_, key_channels, n, d, per_dest))

@@ -1,5 +1,5 @@
 """Distributed query execution: fragment DAG over N in-process workers
-on one torch device.
+on a list of torch device slabs (one device by default).
 
 Reference analog: ``testing/trino-testing/.../DistributedQueryRunner.java``
 (N TestingTrinoServers in one JVM) driving the fragment execution of
@@ -15,10 +15,15 @@ segment-reduce kernel (``ops/kernels.py``). Stages execute bottom-up
 with a barrier per fragment (``streaming_execution`` off) or all at
 once with streaming exchanges (on, the default).
 
-The JAX engine's ``trino_tpu/parallel/distributed.py`` on torch. Every
-task runs on the runner's one device (``device``, ``"cuda"`` unless the
-caller asks for the CPU) and on its current stream, so pages handed
-through a buffer or the exchange need no stream bookkeeping. In-process
+The JAX engine's ``trino_tpu/parallel/distributed.py`` on torch. Its
+``jax.devices()`` mesh is the runner's ``devices`` list (default
+``[device]``, ``"cuda"`` unless the caller asks for the CPU; devices
+may repeat, as ``["cuda:0"] * 4`` on one card): task t runs on
+``devices[t % len(devices)]``, the slab the device exchange gives its
+partition and takes its output from, so a hash boundary's consumer reads
+only its own partition's slab. Tasks run on the device's current
+stream, so pages handed through a buffer or the exchange need no stream
+bookkeeping. In-process
 workers share this process's ``cache.template_seeds()``,
 ``telemetry.stats_store``, the profiler and the exchange sizing history,
 so history is coherent across tasks by construction.
@@ -59,16 +64,22 @@ from ..sql.parser import parse_statement
 class DistributedQueryRunner:
     """Executes SQL over a simulated multi-worker cluster in one
     process, on ``device`` (``"cuda"`` by default; a runner asked for
-    CUDA on a machine without a GPU raises; tests pass ``"cpu"``)."""
+    CUDA on a machine without a GPU raises; tests pass ``"cpu"``), or
+    over ``devices``, the device slabs of the exchange's mesh (default
+    ``[device]``)."""
 
     def __init__(self, connectors: Dict[str, Connector],
                  session: Optional[Session] = None,
                  n_workers: Optional[int] = None,
                  desired_splits: int = 8,
                  broadcast_threshold: Optional[float] = None,
-                 device="cuda"):
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
+                 device="cuda", devices=None):
+        self.devices = [torch.device(x) for x in
+                        (devices if devices is not None else [device])]
+        assert self.devices, "DistributedQueryRunner: no devices"
+        self.device = self.devices[0]
+        if any(x.type == "cuda" for x in self.devices) \
+                and not torch.cuda.is_available():
             raise RuntimeError(
                 "DistributedQueryRunner: device 'cuda' requested but no "
                 "CUDA device is available; pass device='cpu' to run on "
@@ -571,7 +582,8 @@ class DistributedQueryRunner:
         from ..telemetry.tracing import add_driver_spans
 
         planner = LocalExecutionPlanner(
-            self.metadata, self.device, self.desired_splits, task_id=t,
+            self.metadata, self.devices[t % len(self.devices)],
+            self.desired_splits, task_id=t,
             task_count=ntasks,
             exchange_reader=self._make_reader(buffers, t, streaming),
             memory_pool=self._memory_pool,
@@ -667,10 +679,10 @@ class DistributedQueryRunner:
             return None
         # fewer devices than workers is fine: DeviceExchange lays p
         # partitions over d devices (p % d) and carries partition ids
-        # through the exchange, so the one device executes the flagship
-        # path
+        # through the exchange, so a single device still executes the
+        # flagship path (the JAX runner hands it ``jax.devices()``)
         return DeviceExchange(
-            self.n_workers, [self.device],
+            self.n_workers, self.devices,
             sizing=SP.value(self.session, "device_exchange_sizing"),
             hot_split_threshold=SP.value(
                 self.session, "hot_partition_split_threshold"))

@@ -24,10 +24,13 @@ shift is an arithmetic shift plus a mask (``ops/hashtable._shr``), and
 the partition id is the UNSIGNED remainder (an int64 ``%`` of a value
 with bit 63 set routes the row elsewhere, silently).
 
-One device: the send grid of one sender IS the receiver's slab, so no
-collective is called. Several devices wait for the multi-card slice
-(``torch.distributed`` ``all_to_all``); ``repartition_a2a`` refuses
-them.
+Several devices: the JAX engine's mesh is one process driving d
+devices, and so is this one: d device slabs, each a tensor on its own
+device (devices may repeat: ``["cpu"] * d`` in the tests, ``["cuda:0"]
+* 4`` on one card). The ``all_to_all`` is receiver j taking row block j
+of every sender's send grid, in sender order, onto ``devices[j]`` — a
+no-op move where the devices repeat, a peer copy where they differ. One
+sender on one device: its send grid IS the receiver's slab.
 """
 
 from __future__ import annotations
@@ -130,22 +133,11 @@ def partition_histogram(part_ids, valid,
     return hist[:num_partitions].to(torch.int32)
 
 
-def repartition_a2a(cols: Tuple, nulls: Tuple, valid, part_ids,
-                    num_partitions: int, per_dest: int,
-                    devices: Sequence = (None,)):
-    """Route each live row to the slab of the device owning its
-    partition. Returns (cols, nulls, valid, overflow_count) with
-    capacity ``num_partitions * per_dest``.
-
-    Bucket-sort rows by destination, lay them into a (num_partitions,
-    per_dest) send grid and flatten it. On one device the grid is the
-    receiver's slab (the all-to-all is the identity); ``devices`` with
-    more than one entry raise NOT_SUPPORTED.
-    """
-    if len(devices) > 1:
-        raise T.TrinoError(
-            f"the device exchange runs on one device; {len(devices)} "
-            "devices need the multi-card exchange", "NOT_SUPPORTED")
+def send_grid(cols: Tuple, nulls: Tuple, valid, part_ids,
+              num_partitions: int, per_dest: int):
+    """One sender's half of ``repartition_a2a``: bucket-sort its rows by
+    destination and lay them into the (num_partitions, per_dest) send
+    grid, flattened. Returns (cols, nulls, valid, overflow_count)."""
     device = valid.device
     cap = valid.shape[0]
     # sort rows by (invalid, destination): live rows grouped by dest
@@ -177,3 +169,45 @@ def repartition_a2a(cols: Tuple, nulls: Tuple, valid, part_ids,
     return (tuple(to_grid(c[order]) for c in cols),
             tuple(to_grid(n[order]) for n in nulls),
             to_grid(in_grid), overflow)
+
+
+def repartition_a2a(cols: Sequence[Tuple], nulls: Sequence[Tuple],
+                    valid: Sequence, part_ids: Sequence,
+                    num_partitions: int, per_dest: int,
+                    devices: Optional[Sequence] = None):
+    """Route each live row of d senders to the slab of the device owning
+    its partition, with capacity ``num_partitions * per_dest`` per
+    receiver.
+
+    ``cols``/``nulls`` are lists of per-sender tuples, ``valid`` and
+    ``part_ids`` lists of per-sender tensors, sender i on ``devices[i]``
+    (one sender on one device is the d = 1 case). Every sender lays out
+    its grid (``send_grid``); then the collective — the JAX
+    ``lax.all_to_all(tiled=True)`` — gives receiver j row block j
+    (``num_partitions // d`` rows of ``per_dest`` lanes) of every
+    sender's grid, concatenated in sender order, on ``devices[j]``.
+    Returns per-receiver lists (cols tuples, nulls tuples, valid) and the
+    per-sender overflow counts."""
+    d = len(valid)
+    devices = list(devices) if devices is not None \
+        else [v.device for v in valid]
+    assert len(devices) == d and num_partitions % d == 0, \
+        (len(devices), d, num_partitions)
+    grids = [send_grid(c, x, v, p, num_partitions, per_dest)
+             for c, x, v, p in zip(cols, nulls, valid, part_ids)]
+    block = (num_partitions // d) * per_dest
+
+    def receive(pick):
+        # receiver j <- lane block j of every sender, in sender order
+        # (one sender: its grid is the slab, no copy)
+        blocks = [[pick(g)[j * block:(j + 1) * block].to(devices[j])
+                   for g in grids] for j in range(d)]
+        return [b[0] if d == 1 else torch.cat(b) for b in blocks]
+
+    r_cols = [receive(lambda g, i=i: g[0][i]) for i in range(len(cols[0]))]
+    r_nulls = [receive(lambda g, i=i: g[1][i])
+               for i in range(len(nulls[0]))]
+    r_valid = receive(lambda g: g[2])
+    return ([tuple(c[j] for c in r_cols) for j in range(d)],
+            [tuple(x[j] for x in r_nulls) for j in range(d)],
+            r_valid, [g[3] for g in grids])

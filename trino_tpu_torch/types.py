@@ -304,19 +304,52 @@ _SIMPLE_TYPES = {
 _PARAM_RE = re.compile(r"^(\w+)\s*\(\s*(\d+)\s*(?:,\s*(\d+)\s*)?\)$")
 
 
+def _row_field(part: str):
+    """One ``row(...)`` field, ``type`` or ``name type``: (name, type).
+    A name is an identifier or a double-quoted string (``""`` escapes a
+    quote); a field that parses as a type alone stays anonymous. Names
+    keep their case, types do not care."""
+    part = part.strip()
+    if part.startswith('"'):
+        i = 1
+        while i < len(part):
+            if part[i] == '"':
+                if part[i + 1:i + 2] == '"':
+                    i += 2
+                    continue
+                break
+            i += 1
+        if i >= len(part):
+            raise TypeError_(f"unknown type: {part}")
+        return part[1:i].replace('""', '"'), parse_type(part[i + 1:])
+    try:
+        return None, parse_type(part)
+    except TypeError_:
+        if " " not in part:
+            raise
+    name, rest = part.split(" ", 1)
+    return name, parse_type(rest)
+
+
 def parse_type(text: str) -> Type:
-    t = re.sub(r"\s+", " ", text.strip().lower())
+    spaced = re.sub(r"\s+", " ", text.strip())
+    t = spaced.lower()
     if t in _SIMPLE_TYPES:
         return _SIMPLE_TYPES[t]
     if t.endswith(" with time zone") and t.startswith("timestamp"):
         return TIMESTAMP_TZ
     if t.startswith("array(") and t.endswith(")"):
-        return array_type(parse_type(t[len("array("):-1]))
+        return array_type(parse_type(spaced[len("array("):-1]))
     if t.startswith("row(") and t.endswith(")"):
-        inner = t[len("row("):-1]
-        parts, depth, start = [], 0, 0
+        # fields split at top-level commas, outside quoted names too
+        inner = spaced[len("row("):-1]
+        parts, depth, start, quoted = [], 0, 0, False
         for i, ch in enumerate(inner):
-            if ch == "(":
+            if ch == '"':
+                quoted = not quoted
+            elif quoted:
+                continue
+            elif ch == "(":
                 depth += 1
             elif ch == ")":
                 depth -= 1
@@ -324,9 +357,9 @@ def parse_type(text: str) -> Type:
                 parts.append(inner[start:i])
                 start = i + 1
         parts.append(inner[start:])
-        return row_type([(None, parse_type(p)) for p in parts])
+        return row_type([_row_field(p) for p in parts])
     if t.startswith("map(") and t.endswith(")"):
-        inner = t[len("map("):-1]
+        inner = spaced[len("map("):-1]
         depth = 0
         for i, ch in enumerate(inner):
             if ch == "(":
