@@ -28,7 +28,15 @@ Phases, one JSON line each on standard output:
              version, the same work one column at a time (15 gathers and
              15 one-column calls) and ``index_add_`` over the unsorted
              gids of the (n, 15) block, and the kernels' own device time
-             (torch.profiler, without the wrapper's host work);
+             (torch.profiler, without the wrapper's host work) and
+             launches per call; then, from ``KERNEL_CASES``, q1's merge
+             as q1 makes it (24 page partials of 4 live lanes in
+             8,388,608, the dead lanes through the permutation), process
+             q3's 8,192-lane merge and the mesh's 64-lane merge-final
+             (16 columns, sorted), each exact and timed beside
+             ``index_add_`` with its bound share (bound ms / device ms),
+             and at the 8,192-lane call the wrapper's host us per step
+             (``wrapper_steps``);
 5. q1_sf1  — TPC-H q1 at SF1 through ``trino_tpu_torch.LocalQueryRunner``
              on the card, held against the oracle answer in
              ``tests/sf1_expected.py``; every kernel launch counter is set
@@ -226,8 +234,11 @@ Phases, one JSON line each on standard output:
    above, with the count of each beside it, and the profiler's count of
    each VERBOSE run's calls), its error against the plain
    version, its time, the plain version's, the library call's and its
-   memory/compute bound at the main path's shape (q1's page call), and
-   the same at the page and merge calls of every replay above
+   memory/compute bound at the main path's shape (q1's page call), the
+   wrapper's host us per step at the 8,192-lane call
+   (``wrapper_host_us``), the columns phase's merges
+   (``columns_shapes``), and the same, with each bound share, at the
+   page and merge calls of every replay above
    (``q3_shapes``, ``q18_shapes``, ``memory_q3_shapes``,
    ``memory_q18_shapes``, ``distributed_q1_shapes``,
    ``distributed_q18_shapes``, ``distributed_q1_d4_shapes``,
@@ -296,31 +307,54 @@ def time_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
-def kernel_device_ms(fn, iters: int = 10) -> dict:
+def kernel_device_ms(fn, rows: int, iters: int = 10,
+                     attempts: int = 3) -> dict:
     """Device time per call of the segment-reduce kernels that ``fn``
-    launches, per kernel (fill, tile, carry) and in total, from
-    torch.profiler: unlike ``time_ms`` it leaves out the wrapper's host
-    work."""
+    launches over ``rows`` rows, per kernel (tile, carry) and in total,
+    and the launches recorded per call, from torch.profiler: unlike
+    ``time_ms`` it leaves out the wrapper's host work. Each kernel
+    launches once per call (the carry kernel when the rows span more than
+    one tile), and its time is the mean over the launches the profiler
+    recorded: it drops records, now and then every record of a kernel in
+    a window. A window that recorded no launch of a kernel the call makes
+    is profiled again, up to ``attempts`` times; else the times are None,
+    not measured."""
     import re
 
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from trino_tpu_torch.ops import kernels
+
+    made = ("tile", "carry") if rows > kernels.TILE_ROWS else ("tile",)
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    out = {"fill": 0.0, "tile": 0.0, "carry": 0.0}
-    for e in prof.key_averages():
-        m = re.search(r"\b(fill|tile|carry)_kernel<", e.key)
-        if m and e.device_type != DeviceType.CPU:
-            out[m.group(1)] += e.self_device_time_total / 1e3 / iters
-    out["total"] = sum(out.values())
-    return out
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        out = {"tile": 0.0, "carry": 0.0}
+        counts = {"tile": 0, "carry": 0}
+        for e in prof.key_averages():
+            m = re.search(r"\b(tile|carry)_kernel\b", e.key)
+            if m and e.device_type != DeviceType.CPU and e.count:
+                out[m.group(1)] += e.self_device_time_total / 1e3 / e.count
+                counts[m.group(1)] += e.count
+        if all(counts[k] for k in made):
+            out["total"] = out["tile"] + out["carry"]
+            out["launches_per_call"] = sum(counts.values()) / iters
+            return out
+    return {"tile": None, "carry": None, "total": None,
+            "launches_per_call": sum(counts.values()) / iters}
+
+
+def _share(bound_ms: float, device_ms):
+    """Bound ms over device ms, or None where the device time was not
+    measured."""
+    return None if device_ms is None else bound_ms / device_ms
 
 
 def device_phase():
@@ -498,6 +532,117 @@ def _check_columns(cols, gid, ns, kinds, order, kernels):
                for i, (out, col, kind) in enumerate(zip(got, cols, kinds)))
 
 
+#: the calls PERF.md tracks, as ``kernel_case`` builds them: (lanes,
+#: page partials, lanes per partial, live lanes per partial, group ids of
+#: a partial's live lanes, columns, read through ``order``)
+KERNEL_CASES = {
+    # q1's merge as q1 makes it: 24 page partials of 262,144 lanes with 4
+    # live lanes each, padded to 8,388,608; 96 live
+    "q1_merge": (MERGE_ROWS, 24, PAGE_ROWS, 4, "same", 15, True),
+    # the same lanes as the sort path hands them over: columns already in
+    # gid order, no permutation
+    "q1_merge_sorted": (MERGE_ROWS, 24, PAGE_ROWS, 4, "same", 15, False),
+    # q18's merge: 24 partials of 524,288 lanes, 62,500 live each, one
+    # group per live lane (1,500,000 groups)
+    "q18_merge": (16_777_216, 24, 524_288, 62_500, "distinct", 2, True),
+    # the distributed q1 partial step's merge: 8 partials, 24 live
+    "distributed_q1_merge": (4_194_304, 8, 524_288, 3, "same", 15, True),
+    # process q3's merge: 4 partials of 2,048 lanes, 1,400 live each
+    "process_q3_merge": (8_192, 4, 2_048, 1_400, "distinct", 2, True),
+    # the mesh's merge-final: 4 senders of 16 lanes, 3 live each, 3
+    # groups; 15 int64 SUM and the int32 first-row MIN, already sorted
+    # (the sort path: no order)
+    "mesh_merge_final": (64, 4, 16, 3, "same", 16, False),
+}
+
+
+def kernel_case(name: str, rng, dev):
+    """(cols, gid, num_segments, kinds, order, unsorted gids) of one of
+    ``KERNEL_CASES``: the partials' live lanes first in each, dead lanes
+    in the dump segment n; gids sorted stably (``order`` the sort's
+    permutation, or the columns gathered into gid order without it);
+    int64 SUM columns, and the last an int32 MIN of 16 columns."""
+    import numpy as np
+    import torch
+
+    n, pages, lanes, live, groups, ncols, with_order = KERNEL_CASES[name]
+    raw = np.full(n, n, dtype=np.int64)
+    for p in range(pages):
+        base = p * live if groups == "distinct" else 0
+        raw[p * lanes:p * lanes + live] = base + np.arange(live)
+    unsorted = torch.from_numpy(raw.astype(np.int32)).to(dev)
+    order = torch.sort(unsorted, stable=True).indices
+    gid = unsorted[order].contiguous()
+    kinds = ["sum"] * ncols
+    cols = [torch.from_numpy(_values(rng, n, "int64")).to(dev)
+            for _ in range(ncols)]
+    if ncols == 16:
+        kinds[-1] = "min"
+        cols[-1] = torch.from_numpy(_values(rng, n, "int32")).to(dev)
+    if not with_order:
+        cols = [c[order].contiguous() for c in cols]
+        return cols, gid, n + 1, kinds, None, gid
+    return cols, gid, n + 1, kinds, order, unsorted
+
+
+def wrapper_steps(cols, gid, ns, kinds, order, reps: int = 300) -> dict:
+    """Host us per call of each step of ``segment_reduce_columns`` on the
+    card, each timed alone over ``reps`` calls (``time.perf_counter_ns``):
+    the checks, the plan, the outputs' allocation, the descriptor table's
+    packing, the stream lookup, the library call (its launches), the
+    profiled ``_run`` around it (instrument wrapper, count under its
+    lock), and the whole call."""
+    import torch
+
+    from trino_tpu_torch.ops import kernels
+
+    n = gid.shape[0]
+    dtypes = [c.dtype for c in cols]
+    dev = gid.get_device()
+    plan = kernels.plan_columns(dtypes, kinds, n, ns)
+    outs, ptrs, scratch = kernels.allocate_outputs(plan, ns, gid.device)
+
+    def pack():
+        return plan.table.pack(*[v for c, o, code in zip(cols, ptrs,
+                                                         plan.codes)
+                                 for v in (c.data_ptr(), o, code)])
+
+    table = pack()
+    stream = kernels._current_stream(dev)
+    order_ptr = None if order is None else order.data_ptr()
+    table_ptr = None if plan.table_offset < 0 else \
+        scratch + plan.table_offset
+
+    def library():
+        kernels._lib.segment_reduce_columns(
+            table, len(cols), gid.data_ptr(), order_ptr, n, ns,
+            scratch + plan.carry_gid_offset, scratch + plan.carry_val_offset,
+            table_ptr, stream)
+
+    steps = {
+        "check": lambda: kernels._check(cols, gid, order, ns),
+        "plan": lambda: kernels.plan_columns(dtypes, kinds, n, ns),
+        "allocate": lambda: kernels.allocate_outputs(plan, ns, gid.device),
+        "pack": pack,
+        "stream": lambda: kernels._current_stream(dev),
+        "library": library,
+        "run": lambda: kernels._run(cols, gid, order, outs, ns, tuple(kinds),
+                                    plan, table, scratch),
+        "call": lambda: kernels.segment_reduce_columns(cols, gid, ns, kinds,
+                                                       order),
+    }
+    out = {}
+    for name, fn in steps.items():
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter_ns()
+        for _ in range(reps):
+            fn()
+        out[name] = (time.perf_counter_ns() - t0) / reps / 1e3
+        torch.cuda.synchronize()
+    return out
+
+
 def columns_phase():
     """segment_reduce_columns as q1's hash path calls it, against its
     plain version, at the page and at the merge; times it beside the
@@ -510,7 +655,8 @@ def columns_phase():
     rng = np.random.default_rng(20261017)
     dev = torch.device("cuda")
 
-    # mixed table at the page: 34 int64 SUM (two tables of <= 32 columns)
+    # mixed table at the page: 34 int64 SUM (past 32 columns the descriptor
+    # table goes to the device)
     # and two each of int32 MIN, float32 MAX, float64 SUM
     mixed = [("int64", "sum")] * 34 + [("int32", "min"), ("float32", "max"),
                                        ("float64", "sum")] * 2
@@ -553,7 +699,7 @@ def columns_phase():
                 lambda: out2d.index_add_(0, unsorted64, block)),
             "device_ms": kernel_device_ms(
                 lambda: kernels.segment_reduce_columns(
-                    cols, gid, n + 1, kinds, order)),
+                    cols, gid, n + 1, kinds, order), n),
         }
         # gid and order read once per row, each column read once per row
         # and written once per segment
@@ -566,7 +712,46 @@ def columns_phase():
         if case == "page":
             main = dict(timings, n=n, bytes=bytes_, max_abs_err=err)
         del cols, block, out2d
-    return main
+
+    # q1's merge as q1 makes it, and the small merges of the process
+    # cluster (q3) and the mesh (the merge-final), each beside
+    # ``index_add_`` over the unsorted gids, one call per column; at the
+    # 8,192-lane call, the wrapper's host time per step
+    shapes = {}
+    for case in ("q1_merge", "process_q3_merge", "mesh_merge_final"):
+        cols, gid, ns, kinds, order, unsorted = kernel_case(case, rng, dev)
+        n = gid.shape[0]
+        err = _check_columns(cols, gid, ns, kinds, order, kernels)
+        unsorted64 = unsorted.to(torch.int64)
+        outs = [torch.empty(ns, dtype=c.dtype, device=dev) for c in cols]
+
+        def library():
+            for out, col in zip(outs, cols):
+                out.index_add_(0, unsorted64, col)
+
+        def kernel():
+            kernels.segment_reduce_columns(cols, gid, ns, kinds, order)
+
+        bound_ms, bound_by, bytes_ = _bound_ms(cols, n, ns,
+                                               order is not None)
+        device = kernel_device_ms(kernel, n)
+        shapes[case] = {
+            "n": n, "live": int((gid < n).sum()), "columns": len(cols),
+            "order": order is not None, "max_abs_err": err,
+            "bytes": bytes_, "bound_ms": bound_ms, "bound_by": bound_by,
+            "kernel_ms": time_ms(kernel),
+            "plain_ms": time_ms(
+                lambda: kernels.segment_reduce_columns_reference(
+                    cols, gid, ns, kinds, order)),
+            "library_ms": time_ms(library), "device_ms": device["total"],
+            "device_kernels_ms": device,
+            "bound_share": _share(bound_ms, device["total"])}
+        if case == "process_q3_merge":
+            shapes[case]["wrapper_host_us"] = wrapper_steps(
+                cols, gid, ns, kinds, order)
+        emit({"phase": "columns", "case": case, **shapes[case]})
+        del cols, gid, order, unsorted, unsorted64, outs
+    return main, shapes
 
 
 def _load_expected(qid: int):
@@ -2864,8 +3049,11 @@ def columns_replay_phase(phase: str, calls, page_by: str,
             "plain_ms": time_ms(
                 lambda: kernels.segment_reduce_columns_reference(
                     cols, gid, ns, kinds, order)),
-            "library_ms": time_ms(library),
-            "device_ms": kernel_device_ms(kernel)["total"]}
+            "library_ms": time_ms(library)}
+        device = kernel_device_ms(kernel, n)
+        timed[case].update(device_ms=device["total"],
+                           device_launches=device["launches_per_call"],
+                           bound_share=_share(bound_ms, device["total"]))
         emit({"phase": phase, "case": case, **timed[case]})
     return timed
 
@@ -2884,7 +3072,7 @@ def main() -> int:
     card = device_phase()
     build_phase()
     kernel_phase()
-    main_shape = columns_phase()
+    main_shape, columns_shapes = columns_phase()
     tpch_warm = {}
     q1_launches = q1_phase(card, tpch_warm)
     q3_launches, q3_calls = q3_phase(card, tpch_warm)
@@ -2982,15 +3170,23 @@ def main() -> int:
         "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "library_ms": main_shape["library_ms"],
+        "wrapper_host_us": columns_shapes["process_q3_merge"][
+            "wrapper_host_us"],
+        "columns_shapes": {case: {k: t[k] for k in (
+            "n", "live", "columns", "max_abs_err", "kernel_ms", "plain_ms",
+            "device_ms", "bound_ms", "bound_by", "bound_share",
+            "library_ms")} for case, t in columns_shapes.items()},
         **{f"{q}_shapes": {case: {k: t[k] for k in (
             "n", "groups", "columns", "max_abs_err", "kernel_ms",
-            "plain_ms", "device_ms", "bound_ms", "bound_by", "library_ms")}
+            "plain_ms", "device_ms", "device_launches", "bound_ms",
+            "bound_by", "bound_share", "library_ms")}
             for case, t in shapes.items()}
            for q, shapes in replayed.items()},
         "serving_shapes": {burst: {case: {k: t[k] for k in (
             "n", "groups", "segments", "columns", "max_abs_err",
-            "kernel_ms", "plain_ms", "device_ms", "bound_ms", "bound_by",
-            "library_ms")} for case, t in shapes.items()}
+            "kernel_ms", "plain_ms", "device_ms", "device_launches",
+            "bound_ms", "bound_by", "bound_share", "library_ms")}
+            for case, t in shapes.items()}
             for burst, shapes in serving_shapes.items()},
     }]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": card["kind"],

@@ -22,6 +22,9 @@ from trino_tpu_torch.ops import kernels
 from trino_tpu_torch.resources.tpch_queries import TPCH_QUERIES
 from trino_tpu_torch.sql.analyzer import Session
 
+# the kernel design's edge cases (imports neither jax nor trino_tpu)
+from test_torch_segment_reduce_plan import EDGE_CASES, edge_gids
+
 pytestmark = pytest.mark.cuda
 
 KINDS = ["sum", "min", "max"]
@@ -114,8 +117,8 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(dev):
 
 
 #: (dtype, kind) of each column of the mixed table: more than 32 int64 SUM
-#: columns (the kernel launches 32 columns of one dtype and kind at a
-#: time) and two of each other pair
+#: columns (past 32 columns the kernel's descriptor table goes to the
+#: device) and two of each other pair
 MIXED = ([(torch.int64, "sum")] * 34 + [(torch.int32, "min"),
                                         (torch.float32, "max"),
                                         (torch.float64, "sum")] * 2)
@@ -179,6 +182,90 @@ def test_wrapper_rejects_a_bad_order(dev):
         kernels.segment_reduce_columns(cols, gid, 1, ["sum"], order[:15])
     with pytest.raises(ValueError):
         kernels.segment_reduce_columns(cols, gid, 1, ["sum"], order.cpu())
+
+
+def _edge_case(case):
+    """(sorted int32 gids, num_segments) of an edge case: those of
+    ``EDGE_CASES``, one segment over all 8,388,608 rows (4,096 tiles: the
+    carries' long run), and negative gids (dropped) before the groups."""
+    if case == "segment_over_all_rows":
+        return np.zeros(8_388_608, dtype=np.int32), 2
+    if case == "negative_gids":
+        gid = np.concatenate([np.full(3000, -7), np.full(1500, -1),
+                              np.arange(4000) // 3]).astype(np.int32)
+        return gid, int(gid[-1]) + 1
+    return edge_gids(case)
+
+
+@pytest.mark.parametrize("with_order", [False, True])
+@pytest.mark.parametrize("case", sorted(EDGE_CASES) + [
+    "segment_over_all_rows", "negative_gids"])
+def test_edge_cases_match_plain_version(dev, case, with_order):
+    """What the two-launch design could get wrong: gaps longer than a fill
+    chunk (in the middle, at the tail, across tile edges), a segment over
+    several tiles and over all 8,388,608 rows, one row, a tile and a row,
+    gids past num_segments and below 0; each with the mixed table's 40
+    columns of four (dtype, kind) pairs in one call, against the plain
+    version."""
+    gid, ns = _edge_case(case)
+    n = len(gid)
+    rng = np.random.default_rng(len(case) + with_order)
+    base = {dt: _inputs(rng, n, 1, dt, dev)[0]
+            for dt in dict.fromkeys(dt for dt, _ in MIXED)}
+    cols = [base[dt].roll(7919 * i + 1) for i, (dt, _) in enumerate(MIXED)]
+    order = torch.from_numpy(rng.permutation(n)).to(dev) if with_order \
+        else None
+    gid = torch.from_numpy(gid).to(dev)
+    kinds = [kind for _, kind in MIXED]
+    before = kernels.segment_reduce.launches
+    got = kernels.segment_reduce_columns(cols, gid, ns, kinds, order)
+    assert kernels.segment_reduce.launches == before + 1
+    for (dtype, kind), col, out in zip(MIXED, cols, got):
+        assert out.dtype == dtype and out.shape == (ns,)
+        _assert_matches(out, col if order is None else col[order], gid, ns,
+                        kind)
+
+
+@pytest.mark.parametrize("n,ns", [(262_144, 262_145), (8_388_608, 8_388_609),
+                                  (7, 8), (0, 100)])
+@pytest.mark.parametrize("table", ["one", "q1", "mixed"])
+def test_at_most_two_kernels_per_call(dev, table, n, ns):
+    """Whatever the columns' dtypes and kinds, one call launches at most
+    two CUDA kernels (the tile pass and the carries; the tile pass alone
+    when the rows fit one tile), counted by torch.profiler; past 32
+    columns the descriptor table's one host-to-device copy is no
+    kernel."""
+    import re
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    table = {"one": [(torch.float64, "sum")],
+             "q1": [(torch.int64, "sum")] * 15, "mixed": MIXED}[table]
+    rng = np.random.default_rng(n)
+    gid = _inputs(rng, n, 4, torch.int32, dev)[1]
+    cols = [_inputs(rng, n, 1, dt, dev)[0] for dt, _ in table]
+    kinds = [kind for _, kind in table]
+    order = torch.arange(n, device=dev) if len(table) > 1 else None
+    kernels.segment_reduce_columns(cols, gid, ns, kinds, order)
+    torch.cuda.synchronize()
+    # over 20 calls, so that a kernel record the profiler drops now and
+    # then cannot hide a third kernel (nor make two read as one)
+    calls = 20
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            kernels.segment_reduce_columns(cols, gid, ns, kinds, order)
+        torch.cuda.synchronize()
+    device = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    launched = round(sum(e.count for e in device
+                         if re.search(r"\b(tile|carry)_kernel\b", e.key))
+                     / calls)
+    # nothing else runs on the card but the table's copy
+    assert all(re.search(r"\b(tile|carry)_kernel\b", e.key)
+               or e.key.startswith("Memcpy HtoD") for e in device)
+    assert launched == (2 if n > kernels.TILE_ROWS else 1)
 
 
 def test_q1_on_the_card_equals_the_cpu_path(dev):

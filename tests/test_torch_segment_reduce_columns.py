@@ -27,12 +27,14 @@ from trino_tpu_torch.ops import kernels
 # the one-column file's inputs, tolerances and interpret-mode fixture
 from test_torch_segment_reduce import (RTOL, _sorted_gids, _values,  # noqa: F401
                                        force_interpret)
+# the kernel design's edge cases
+from test_torch_segment_reduce_plan import EDGE_CASES, edge_gids
 
 torch.set_num_threads(2)
 
 #: (dtype, kind) of each column of the mixed table: more than 32 int64
-#: SUM columns (the kernel launches 32 columns of one dtype and kind at a
-#: time) and two of each other pair
+#: SUM columns (past 32 columns the kernel's descriptor table goes to the
+#: device) and two of each other pair
 MIXED = ([("int64", "sum")] * 34 + [("int32", "min"), ("float32", "max"),
                                     ("float64", "sum")] * 2)
 
@@ -112,6 +114,45 @@ def test_columns_empty_segments_and_dump_tail(with_order):
         for empty in (1, 3, 4, 6, 7):
             assert out[empty].item() == ident
         _assert_column(out.numpy(), want, col[order], gid, dtype, kind, ns)
+
+
+#: one column of each (dtype, kind) pair the edge cases hold
+EDGE_COLUMNS = [("int64", "sum"), ("int32", "min"), ("float32", "max"),
+                ("float64", "sum")]
+
+
+@pytest.mark.parametrize("with_order", [False, True])
+@pytest.mark.parametrize("case", sorted(EDGE_CASES))
+def test_columns_edge_cases_match_jax(case, with_order, force_interpret):
+    """Long gaps (in the middle, at the tail, across tile edges), a
+    segment over several tiles, one row, a tile and a row, and gids past
+    num_segments: the plain version against the JAX engine, through its
+    Pallas kernel in interpret mode where the gids step by at most 1, else
+    through its plain ``jax.ops.segment_*`` path."""
+    gid, ns = edge_gids(case)
+    n = len(gid)
+    rng = np.random.default_rng(len(case) + with_order)
+    order = rng.permutation(n) if with_order else np.arange(n)
+    cols = [_values(rng, n, dtype) for dtype, _ in EDGE_COLUMNS]
+    kinds = [kind for _, kind in EDGE_COLUMNS]
+    got = kernels.segment_reduce_columns(
+        [torch.from_numpy(c) for c in cols], torch.from_numpy(gid), ns,
+        kinds, order=torch.from_numpy(order) if with_order else None)
+    mode = None if EDGE_CASES[case] else ""
+    for (dtype, kind), col, out in zip(EDGE_COLUMNS, cols, got):
+        assert out.shape == (ns,)
+        want = np.asarray(pk.segment_reduce(
+            jnp.asarray(col[order]), jnp.asarray(gid), num_segments=ns,
+            kind=kind, mode=mode))
+        if dtype in RTOL and kind == "sum":
+            keep = gid < ns
+            scale = np.zeros(ns)
+            np.add.at(scale, gid[keep],
+                      np.abs(col[order][keep].astype(np.float64)))
+            assert np.all(np.abs(out.numpy().astype(np.float64) - want)
+                          <= RTOL[dtype] * scale)
+        else:
+            np.testing.assert_array_equal(out.numpy(), want)
 
 
 def test_no_columns_give_no_outputs():

@@ -131,15 +131,26 @@ class CountedProgram:
     function counts again, as a fresh ``jax.jit`` retraces)."""
 
     __slots__ = ("name", "fn", "static_pos", "static_names", "_seen",
-                 "_lock")
+                 "_lock", "_signature")
 
-    def __init__(self, name: str, fn, static_argnames: Tuple[str, ...] = ()):
+    def __init__(self, name: str, fn, static_argnames: Tuple[str, ...] = (),
+                 signature_fn=None):
         self.name = name
         self.fn = fn
         self.static_names = frozenset(static_argnames)
         self.static_pos = static_positions(fn, tuple(static_argnames))
         self._seen: set = set()
         self._lock = threading.Lock()
+        self._signature = signature_fn
+
+    def signature(self, args, kwargs) -> tuple:
+        """The call's signature: ``signature_fn(*args, **kwargs)`` when the
+        program was given one (a cheap key standing for its arguments'
+        shapes), else every argument's token. Raises TypeError when a
+        static value is unhashable."""
+        if self._signature is not None:
+            return self._signature(*args, **kwargs)
+        return signature(args, kwargs, self.static_pos, self.static_names)
 
     def note(self, sig) -> bool:
         """Record one call at ``sig``; True when it is the first."""
@@ -152,8 +163,7 @@ class CountedProgram:
 
     def __call__(self, *args, **kwargs):
         try:
-            sig = signature(args, kwargs, self.static_pos,
-                            self.static_names)
+            sig = self.signature(args, kwargs)
         except TypeError:
             sig = None  # unhashable static: counted as one signature
         self.note(sig)

@@ -22,13 +22,15 @@ device, a failed build and a failed launch all raise.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
+import struct
 import subprocess
 import threading
 import time
-from typing import List, Optional, Sequence
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -42,8 +44,6 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 _lib: Optional[ctypes.CDLL] = None
-#: rows per tile of the kernel, read from the library once it is loaded
-_tile_rows = 0
 #: wall ms of the library's build (when this process built it) and load;
 #: charged once per process to the kernel's first profiler entry
 _load_ms = 0.0
@@ -98,23 +98,29 @@ def build() -> str:
 
 
 def _library() -> ctypes.CDLL:
-    global _lib, _tile_rows, _load_ms
+    global _lib, _load_ms
     with _build_lock:
         if _lib is None:
             t0 = time.perf_counter()
             lib = ctypes.CDLL(build())
             vp = ctypes.c_void_p
             lib.segment_reduce_columns.argtypes = [
-                ctypes.POINTER(vp), ctypes.POINTER(vp),
-                ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int),
-                ctypes.c_int, vp, vp, ctypes.c_longlong, ctypes.c_longlong,
-                vp, vp, vp]
+                ctypes.c_char_p, ctypes.c_int, vp, vp, ctypes.c_longlong,
+                ctypes.c_longlong, vp, vp, vp, vp]
             lib.segment_reduce_columns.restype = ctypes.c_int
-            lib.segment_reduce_tile_rows.argtypes = []
-            lib.segment_reduce_tile_rows.restype = ctypes.c_int
+            for name in ("segment_reduce_tile_rows",
+                         "segment_reduce_inline_columns"):
+                getattr(lib, name).argtypes = []
+                getattr(lib, name).restype = ctypes.c_int
             lib.segment_reduce_error_string.argtypes = [ctypes.c_int]
             lib.segment_reduce_error_string.restype = ctypes.c_char_p
-            _tile_rows = lib.segment_reduce_tile_rows()
+            got = (lib.segment_reduce_tile_rows(),
+                   lib.segment_reduce_inline_columns())
+            if got != (TILE_ROWS, INLINE_COLUMNS):
+                raise RuntimeError(
+                    f"segment_reduce library: tile rows and inline columns "
+                    f"{got}, the wrapper expects "
+                    f"{(TILE_ROWS, INLINE_COLUMNS)}")
             _load_ms = (time.perf_counter() - t0) * 1e3
             _lib = lib
         return _lib
@@ -142,16 +148,30 @@ def _charge_load_ms() -> float:
 # Hopper: memory — the gids and the permutation are read once per row,
 # each column once per row, each column's segments written once. At q1's
 # aggregation page (262,144 rows, 15 int64 SUM states, 262,145 segments)
-# that is 66.06 MB, 0.0197 ms at 3.35 TB/s. The design (fill, one block
-# per 2,048-row tile and column with a block-wide segmented scan, one
-# block per column over the tile-edge carries; no atomics; three launches
-# per (dtype, kind) among the columns) is described in
-# csrc/segment_reduce.cu.
+# that is 66.06 MB, 0.0197 ms at 3.35 TB/s. The design, described in
+# csrc/segment_reduce.cu: at most two launches per call whatever the
+# columns' dtypes and kinds; a block per 2,048-row tile reads the gids and
+# the permutation once for every column (through a cp.async ring), writes
+# each segment inside its tile and the identity into the unnamed segments
+# near its gids, while the grid's blocks share the long unnamed stretches;
+# a second launch folds the tile-edge carries in tile order. No atomics.
+# The wrapper's host work per call: the checks, one output block per
+# dtype (the carries' scratch carved from the first), one packed
+# descriptor table (``plan_columns`` lays it all out, cached per shape)
+# and the library call, profiled under the plan's key rather than a
+# token of every tensor argument.
 
 SEGMENT_KINDS = ("sum", "min", "max")
 _KIND_CODE = {"sum": 0, "min": 1, "max": 2}
 _DTYPE_CODE = {torch.int32: 0, torch.int64: 1, torch.float32: 2,
                torch.float64: 3}
+#: rows per tile of csrc/segment_reduce.cu (``kTile``) and the most
+#: columns whose descriptors ride in the launch parameters (``kInline``);
+#: the library's own values are checked against these when it loads
+TILE_ROWS = 2048
+INLINE_COLUMNS = 32
+#: bytes of one column descriptor: input pointer, output pointer, code
+DESCRIPTOR_BYTES = 24
 
 
 def segment_identity(kind: str, dtype: torch.dtype):
@@ -194,11 +214,94 @@ def segment_reduce_columns_reference(cols: Sequence[torch.Tensor],
             for col, kind in zip(cols, kinds)]
 
 
-def _dtype_codes(cols, gid, order, num_segments) -> List[int]:
-    """The columns' dtype codes; raises on what the kernel does not take.
-    Cheap tensor attributes only: this runs on every call."""
+class ColumnsPlan(NamedTuple):
+    """Where one call's outputs, scratch and descriptors go (see
+    ``plan_columns``)."""
+    #: per column: dtype code * 3 + kind code, as the kernel reads it
+    codes: Tuple[int, ...]
+    #: per output block: (dtype, rows); a block's rows are its columns'
+    #: outputs of ``num_segments`` values each, and block 0 has extra rows
+    #: holding the scratch
+    blocks: Tuple[Tuple[torch.dtype, int], ...]
+    #: per column: (block, row) of its output
+    slots: Tuple[Tuple[int, int], ...]
+    #: per output block: the rows that are outputs
+    out_rows: Tuple[int, ...]
+    #: byte offsets into block 0 of the carries' gids (2 per tile), their
+    #: values (8 bytes per tile edge and column) and the device copy of the
+    #: descriptor table (-1: the descriptors ride in the launch)
+    carry_gid_offset: int
+    carry_val_offset: int
+    table_offset: int
+    #: the descriptor table's layout: three int64 per column
+    table: struct.Struct
+    #: (dtypes, kinds, n, num_segments): what the call's shapes are, the
+    #: profiled library call's signature
+    key: tuple
+
+
+def _align16(x: int) -> int:
+    return -(-x // 16) * 16
+
+
+def plan_columns(dtypes: Sequence[torch.dtype], kinds: Sequence[str],
+                 n: int, num_segments: int) -> ColumnsPlan:
+    """The layout of one ``segment_reduce_columns`` call of ``n`` rows into
+    ``num_segments`` segments: one output block per dtype (in the order
+    the dtypes first appear), its columns as rows; the kernel's scratch
+    (the tile-edge carries and, past ``INLINE_COLUMNS`` columns, the
+    descriptor table) in extra rows of block 0, 16-byte aligned, so a call
+    makes one allocation per dtype. A pure function of its arguments
+    (cached): raises on a dtype or kind the kernel does not take."""
+    return _plan(tuple(dtypes), tuple(kinds), n, num_segments)
+
+
+@functools.lru_cache(maxsize=1024)
+def _plan(dtypes: tuple, kinds: tuple, n: int,
+          num_segments: int) -> ColumnsPlan:
+    codes, slots, block_of, counts = [], [], {}, []
+    for dtype, kind in zip(dtypes, kinds):
+        code = _DTYPE_CODE.get(dtype)
+        if code is None:
+            raise TypeError(f"segment_reduce: unsupported dtype {dtype}")
+        if kind not in _KIND_CODE:
+            raise ValueError(f"segment_reduce: unknown kind {kind!r}")
+        codes.append(code * 3 + _KIND_CODE[kind])
+        b = block_of.setdefault(dtype, len(block_of))
+        if b == len(counts):
+            counts.append(0)
+        slots.append((b, counts[b]))
+        counts[b] += 1
+    codes, slots = tuple(codes), tuple(slots)
+    blocks = tuple(zip(block_of, counts))
+    table = struct.Struct(f"<{3 * len(codes)}q")
+    k = len(codes)
+    key = (dtypes, kinds, n, num_segments)
+    out_rows = tuple(rows for _, rows in blocks)
+    if not blocks or num_segments == 0:
+        # nothing is written, so nothing is launched and no scratch needed
+        return ColumnsPlan(codes, blocks, slots, out_rows, 0, 0, -1, table,
+                           key)
+    carries = 2 * -(-n // TILE_ROWS)
+    dtype0, rows0 = blocks[0]
+    row_bytes = num_segments * dtype0.itemsize
+    gid_off = _align16(rows0 * row_bytes)
+    val_off = _align16(gid_off + 4 * carries)
+    end = val_off + 8 * carries * k
+    table_off = -1
+    if k > INLINE_COLUMNS:
+        table_off, end = end, end + DESCRIPTOR_BYTES * k
+    return ColumnsPlan(
+        codes, ((dtype0, -(-end // row_bytes)),) + blocks[1:], slots,
+        out_rows, gid_off, val_off, table_off, table, key)
+
+
+def _check(cols, gid, order, num_segments: int) -> None:
+    """Raises on tensors the kernel does not take (dtypes and kinds are
+    checked by ``plan_columns``). Cheap tensor attributes only: this runs
+    on every call."""
     d = gid.get_device()
-    if not gid.is_cuda or any(c.get_device() != d for c in cols) or \
+    if d < 0 or any(c.get_device() != d for c in cols) or \
             (order is not None and order.get_device() != d):
         raise ValueError(
             "segment_reduce: col on "
@@ -210,18 +313,13 @@ def _dtype_codes(cols, gid, order, num_segments) -> List[int]:
     shape = gid.shape
     if len(shape) != 1 or not gid.is_contiguous():
         raise ValueError("segment_reduce: gid must be 1-D and contiguous")
-    codes = []
     for col in cols:
-        code = _DTYPE_CODE.get(col.dtype)
-        if code is None:
-            raise TypeError(f"segment_reduce: unsupported dtype {col.dtype}")
         if col.shape != shape:
             raise ValueError(
                 f"segment_reduce: col {tuple(col.shape)} and gid "
                 f"{tuple(shape)} must be 1-D and of one length")
         if not col.is_contiguous():
             raise ValueError("segment_reduce: col must be contiguous")
-        codes.append(code)
     if order is not None:
         if order.dtype != torch.int64:
             raise TypeError(
@@ -233,7 +331,6 @@ def _dtype_codes(cols, gid, order, num_segments) -> List[int]:
     if not 0 <= num_segments < 2 ** 31:
         raise ValueError(f"segment_reduce: num_segments {num_segments} "
                          "out of range")
-    return codes
 
 
 def segment_reduce_columns(cols: Sequence[torch.Tensor], gid: torch.Tensor,
@@ -263,7 +360,9 @@ def segment_reduce_columns(cols: Sequence[torch.Tensor], gid: torch.Tensor,
             or (order is not None and order.is_cuda)):
         return segment_reduce_columns_reference(cols, gid, num_segments,
                                                 kinds, order)
-    dtype_codes = _dtype_codes(cols, gid, order, num_segments)
+    _check(cols, gid, order, num_segments)
+    plan = plan_columns([c.dtype for c in cols], kinds, gid.shape[0],
+                        num_segments)
     if not cols:
         return []
     if _recorded is not None:
@@ -272,33 +371,39 @@ def segment_reduce_columns(cols: Sequence[torch.Tensor], gid: torch.Tensor,
         with _count_lock:
             if _recorded is not None:
                 _recorded.append(entry)
-    return _launch(cols, gid, num_segments, tuple(kinds), order,
-                   dtype_codes)
+    return _launch(cols, gid, num_segments, tuple(kinds), order, plan)
+
+
+def allocate_outputs(plan: ColumnsPlan, num_segments: int, device):
+    """The call's outputs (1-D views of ``num_segments`` values into one
+    block per dtype, in column order), each output's address, and the
+    address of the scratch block (block 0)."""
+    blocks = [torch.empty((rows, num_segments), dtype=dtype, device=device)
+              for dtype, rows in plan.blocks]
+    # a block's views in one op: block 0's scratch rows are one or two
+    # when the segments are about as many as the rows, and then a view
+    # each costs less than slicing them off first
+    views = [b.unbind(0) if b.shape[0] - rows <= 2 else b[:rows].unbind(0)
+             for b, rows in zip(blocks, plan.out_rows)]
+    bases = [b.data_ptr() for b in blocks]
+    pitch = [num_segments * dtype.itemsize for dtype, _ in plan.blocks]
+    outs = [views[b][r] for b, r in plan.slots]
+    ptrs = [bases[b] + r * pitch[b] for b, r in plan.slots]
+    return outs, ptrs, bases[0]
 
 
 def _launch(cols, gid, num_segments: int, kinds: tuple, order,
-            dtype_codes) -> List[torch.Tensor]:
+            plan: ColumnsPlan) -> List[torch.Tensor]:
     """One launch of the kernel's library over checked CUDA tensors: the
-    outputs and the tile-edge carries are allocated here, then ``_run``
-    makes the library call."""
-    _library()
-    dev = gid.device
-    n = gid.shape[0]
-    k = len(cols)
-    # one output block per dtype, its columns as rows
-    outs: List[Optional[torch.Tensor]] = [None] * k
-    for dtype in {c.dtype for c in cols}:
-        idx = [i for i, c in enumerate(cols) if c.dtype == dtype]
-        block = torch.empty((len(idx), num_segments), dtype=dtype,
-                            device=dev)
-        for i, row in zip(idx, block.unbind(0)):
-            outs[i] = row
-    carries = 2 * -(-n // _tile_rows)
-    carry_gid = torch.empty((carries,), dtype=torch.int32, device=dev)
-    # 8 bytes per carry value, whatever the column's dtype
-    carry_val = torch.empty((k * carries,), dtype=torch.int64, device=dev)
-    _run(cols, gid, order, outs, carry_gid, carry_val, num_segments, kinds,
-         tuple(dtype_codes))
+    outputs and the scratch are allocated and the descriptor table packed
+    here, then ``_run`` makes the library call."""
+    if _lib is None:
+        _library()
+    outs, ptrs, scratch = allocate_outputs(plan, num_segments, gid.device)
+    table = plan.table.pack(*[v for c, o, code in zip(cols, ptrs,
+                                                      plan.codes)
+                              for v in (c.data_ptr(), o, code)])
+    _run(cols, gid, order, outs, num_segments, kinds, plan, table, scratch)
     return outs
 
 
@@ -308,27 +413,36 @@ def _run_ops(cols, gid, *_):
     return len(cols) * gid.shape[0]
 
 
-def _run(cols, gid, order, outs, carry_gid, carry_val, num_segments: int,
-         kinds: tuple, dtype_codes: tuple) -> None:
-    """The library call: fill, tiles and carries of every column into
+def _run_signature(cols, gid, order, outs, num_segments, kinds,
+                   plan: ColumnsPlan, *_):
+    """The library call's program signature: the call's dtypes, kinds,
+    rows and segments, and whether it reads through ``order``."""
+    return plan.key, order is None
+
+
+def _run(cols, gid, order, outs, num_segments: int, kinds: tuple,
+         plan: ColumnsPlan, table: bytes, scratch: int) -> None:
+    """The library call: the tile and carry kernels of every column into
     ``outs``, on the current stream."""
-    lib = _library()
-    n = gid.shape[0]
-    k = len(cols)
-    kind_codes = [_KIND_CODE[kind] for kind in kinds]
-    rc = lib.segment_reduce_columns(
-        (ctypes.c_void_p * k)(*[c.data_ptr() for c in cols]),
-        (ctypes.c_void_p * k)(*[o.data_ptr() for o in outs]),
-        (ctypes.c_int * k)(*dtype_codes), (ctypes.c_int * k)(*kind_codes),
-        k, gid.data_ptr(), None if order is None else order.data_ptr(), n,
-        num_segments, carry_gid.data_ptr(), carry_val.data_ptr(),
-        torch.cuda.current_stream(gid.device).cuda_stream)
+    rc = _lib.segment_reduce_columns(
+        table, len(cols), gid.data_ptr(),
+        None if order is None else order.data_ptr(), gid.shape[0],
+        num_segments, scratch + plan.carry_gid_offset,
+        scratch + plan.carry_val_offset,
+        None if plan.table_offset < 0 else scratch + plan.table_offset,
+        _current_stream(gid.get_device()))
     if rc != 0:
-        msg = lib.segment_reduce_error_string(rc).decode(errors="replace")
+        msg = _lib.segment_reduce_error_string(rc).decode(errors="replace")
         raise RuntimeError(f"segment_reduce launch failed: CUDA error "
                            f"{rc} ({msg})")
     with _count_lock:
         segment_reduce.launches += 1
+
+
+def _current_stream(device_index: int) -> int:
+    """The raw handle of PyTorch's current stream on the device (the
+    binding Triton launches with: no Stream object per call)."""
+    return torch._C._cuda_getCurrentRawStream(device_index)
 
 
 # the library call, profiled as the JAX engine's Pallas program
@@ -337,10 +451,10 @@ def _run(cols, gid, order, outs, carry_gid, carry_val, num_segments: int,
 # allocated before it, so its event span holds the launch alone: when
 # the stream is idle as the call begins (as on q1's pages), a span
 # around the allocation would time the host's allocation instead. Its
-# bytes are the inputs, the outputs and the carries, each once.
-_run = instrument("segment_reduce_pallas", _run,
-                  static_argnames=("num_segments", "kinds"),
-                  flops=_run_ops, kernel=True, compile_ms=_charge_load_ms)
+# bytes are the inputs and the outputs, each once.
+_run = instrument("segment_reduce_pallas", _run, flops=_run_ops,
+                  kernel=True, compile_ms=_charge_load_ms,
+                  signature=_run_signature)
 
 
 def segment_tile_rows(device) -> int:
@@ -352,7 +466,7 @@ def segment_tile_rows(device) -> int:
     if torch.device(device).type != "cuda":
         return 1
     _library()
-    return _tile_rows
+    return TILE_ROWS
 
 
 def segment_reduce(col: torch.Tensor, gid: torch.Tensor, num_segments: int,

@@ -71,7 +71,7 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
-from ..jit_stats import CountedProgram, signature
+from ..jit_stats import CountedProgram
 
 __all__ = [
     "enabled", "enable", "profiling", "instrument", "snapshot",
@@ -312,9 +312,10 @@ class ProfiledFunction:
 
     def __init__(self, name: str, fn, key=None,
                  static_argnames: Tuple[str, ...] = (), flops=None,
-                 kernel: bool = False, compile_ms=None):
+                 kernel: bool = False, compile_ms=None, signature=None):
         self.name = name
-        self.program = CountedProgram(name, fn, tuple(static_argnames))
+        self.program = CountedProgram(name, fn, tuple(static_argnames),
+                                      signature)
         self.key_extra = key
         self.flops_fn = flops
         self.kernel = kernel
@@ -330,8 +331,7 @@ class ProfiledFunction:
     def _profiled_call(self, args, kwargs):
         prog = self.program
         try:
-            sig = signature(args, kwargs, prog.static_pos,
-                            prog.static_names)
+            sig = prog.signature(args, kwargs)
         except TypeError:
             return prog(*args, **kwargs)  # unhashable static: plain path
         prog.note(sig)
@@ -417,7 +417,8 @@ def _short_repr(obj, limit: int = 160) -> str:
 
 def instrument(name: str, fn, key=None,
                static_argnames: Tuple[str, ...] = (), flops=None,
-               kernel: bool = False, compile_ms=None) -> ProfiledFunction:
+               kernel: bool = False, compile_ms=None,
+               signature=None) -> ProfiledFunction:
     """Wrap one torch program for the registry. ``name`` is the JAX
     engine's program name; ``key`` is the owning cache's key (processor
     IR key) for per-instance programs; ``static_argnames`` are the
@@ -425,11 +426,13 @@ def instrument(name: str, fn, key=None,
     counts a call's operations; ``kernel`` marks the hand-written
     kernel's launch entry (recorded even when nested);
     ``compile_ms()`` returns the build wall to charge its first
-    entry."""
+    entry; ``signature(*args, **kwargs)``, a hashable key standing for
+    the arguments' shapes and static values, replaces tokenizing every
+    argument on each call (see ``jit_stats.CountedProgram``)."""
     return ProfiledFunction(name, fn, key=key,
                             static_argnames=tuple(static_argnames),
                             flops=flops, kernel=kernel,
-                            compile_ms=compile_ms)
+                            compile_ms=compile_ms, signature=signature)
 
 
 # -- reporting -------------------------------------------------------------
