@@ -33,8 +33,9 @@ from .sortkeys import SortKey, lexsort_indices
 from .window import _cummax, _new_run, order_operands, partition_operands
 
 
-def _topn_kernel(part_ops, order_ops, cols, nulls, valid, ranking: str,
-                 max_rank: int):
+def _topn_kernel(part_ops: Sequence[torch.Tensor],
+                 order_ops: Sequence[torch.Tensor], cols, nulls, valid,
+                 ranking: str, max_rank: int):
     """Rows sorted by (partition, order), survivors (rank <= max_rank)
     first; returns (cols, nulls, keep, rank, survivors)."""
     n = valid.shape[0]
@@ -60,7 +61,7 @@ def _topn_kernel(part_ops, order_ops, cols, nulls, valid, ranking: str,
     order2 = torch.sort((~keep).to(torch.uint8), stable=True).indices
     front = perm[order2]
     return ([c[front] for c in cols], [x[front] for x in nulls],
-            keep[order2], rk[order2], int(keep.sum()))
+            keep[order2], rk[order2], int(keep.sum()))  # qlint: ignore[recompile] the survivor count sizes the output page: the JAX engine reads it on the host too (trino_tpu/ops/grouped_topn.py:159)
 
 
 # profiled program (telemetry.profiler): a plain call when profiling is off

@@ -171,7 +171,7 @@ def hash_group_ids(key_ops: Sequence[torch.Tensor], valid: torch.Tensor,
 
     unresolved = ~resolved
     if exact:
-        overflow = bool(unresolved.any())
+        overflow = bool(unresolved.any())  # qlint: ignore[recompile] the caller branches on it to fall back: the JAX engine reads it on the host too (trino_tpu/ops/aggregation.py:779)
     else:
         # partial aggregation tolerates duplicate groups: unresolved
         # rows lead their own singleton group

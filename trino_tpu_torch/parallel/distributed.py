@@ -80,7 +80,7 @@ class DistributedQueryRunner:
         self.device = self.devices[0]
         if any(x.type == "cuda" for x in self.devices) \
                 and not torch.cuda.is_available():
-            raise RuntimeError(
+            raise T.DeviceUnavailableError(
                 "DistributedQueryRunner: device 'cuda' requested but no "
                 "CUDA device is available; pass device='cpu' to run on "
                 "the CPU")

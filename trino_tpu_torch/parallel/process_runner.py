@@ -273,7 +273,7 @@ class ProcessQueryRunner:
         self.device = torch.device(device)
         if self.device.type == "cuda":
             if not torch.cuda.is_available():
-                raise RuntimeError(
+                raise T.DeviceUnavailableError(
                     "ProcessQueryRunner: device 'cuda' requested but no "
                     "CUDA device is available; pass device='cpu' to run "
                     "on the CPU")

@@ -126,6 +126,9 @@ class _TaskState:
         self.buffer = None          # ops.output.OutputBuffer
         self.rows = 0
         self.abort = threading.Event()
+        #: set once the run_task response is on the wire (or failed to
+        #: get there): a streaming task's injected kill waits for it
+        self.acked = threading.Event()
         #: per-(partition, consumer) retained-frame cursors for the
         #: ack-based streaming pull protocol
         self.streams: Dict[tuple, _RetainedStream] = {}
@@ -256,7 +259,13 @@ class WorkerServer:
                             "template_seeded": template_seeded,
                             "sizing_seeded": sizing_seeded})
         elif op == "run_task":
-            send_msg(sock, self.run_task(req))
+            try:
+                send_msg(sock, self.run_task(req))
+            finally:
+                with self._lock:
+                    state = self.tasks.get(req["task_id"])
+                if state is not None:
+                    state.acked.set()
         elif op == "get_results":
             self.send_results(sock, req["task_id"], req["partition"])
         elif op == "get_page_stream":
@@ -622,6 +631,12 @@ class WorkerServer:
                                         req.get("session", {}))
         tracer, task_span = self._open_task_span(req, req["task_id"])
         try:
+            if fault.get("kind") == "kill-worker":
+                # the worker dies mid-stream, after the coordinator
+                # holds the launch's acknowledgement: a death racing
+                # the ack would fail the launch RPC instead, another
+                # recovery path than the one the fault stands for
+                state.acked.wait(timeout=60)
             self._apply_start_fault(fault, req["task_id"])
             state.rows = self._execute_fragment(req, state,
                                                 streaming=True,
@@ -1182,7 +1197,9 @@ def open_device(device):
     device = torch.device(device)
     if device.type == "cuda":
         if not torch.cuda.is_available():
-            raise RuntimeError("no CUDA device is available")
+            from ..types import DeviceUnavailableError
+
+            raise DeviceUnavailableError("no CUDA device is available")
         torch.empty(1, device=device)
         torch.cuda.synchronize(device)
     else:
@@ -1200,7 +1217,7 @@ def main(argv=None):
     try:
         device = open_device(args.device)
         server = WorkerServer(args.port, device)
-    except Exception as e:  # the coordinator's error names the cause
+    except Exception as e:  # qlint: ignore[taxonomy] a start-up failure ends the process: reported as WORKER_FAILED <cause> (the coordinator's error names it), then exit 1
         print(f"WORKER_FAILED {type(e).__name__}: {e}".replace("\n", " "),
               flush=True)
         sys.exit(1)

@@ -78,7 +78,7 @@ class LocalQueryRunner:
 
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
+            raise T.DeviceUnavailableError(
                 "LocalQueryRunner: device 'cuda' requested but no CUDA "
                 "device is available; pass device='cpu' to run on the CPU")
         connectors = dict(connectors)

@@ -40,6 +40,7 @@ its own (``store()``), apart from the JAX engine's.
 
 from __future__ import annotations
 
+import functools
 import hashlib
 import json
 import os
@@ -150,19 +151,19 @@ _CANON_MEMO: Dict[int, tuple] = {}
 _CANON_MEMO_MAX = 1 << 16
 
 
-_CANON_CLASSES: tuple = ()
+@functools.lru_cache(maxsize=None)
+def _canon_classes() -> tuple:
+    """(PlanNode, Literal, Domain), imported on first use (the planner
+    imports this module)."""
+    from ..expr.ir import Literal
+    from ..planner.plan import PlanNode
+    from ..predicate import Domain
+
+    return PlanNode, Literal, Domain
 
 
 def _canon_value(v):
-    global _CANON_CLASSES
-    if not _CANON_CLASSES:
-        # imported on first use (the planner imports this module)
-        from ..expr.ir import Literal
-        from ..planner.plan import PlanNode
-        from ..predicate import Domain
-
-        _CANON_CLASSES = (PlanNode, Literal, Domain)
-    PlanNode, Literal, Domain = _CANON_CLASSES
+    PlanNode, Literal, Domain = _canon_classes()
     if isinstance(v, PlanNode):
         return "node"             # children are NOT part of the key
     if isinstance(v, Literal):

@@ -33,6 +33,17 @@ class TrinoError(Exception):
         self.code = code
 
 
+class DeviceUnavailableError(TrinoError, RuntimeError):
+    """The device a runner or worker was asked for cannot be opened: no
+    CUDA device on the host. Deterministic — a retry on the same host
+    fails the same way — so its code classifies as a USER error (not
+    retryable), and nothing falls back to the CPU: the caller asks for
+    ``device="cpu"`` itself."""
+
+    def __init__(self, message: str):
+        super().__init__(message, code="DEVICE_UNAVAILABLE")
+
+
 class TypeError_(TrinoError):
     def __init__(self, message: str):
         super().__init__(message, code="TYPE_MISMATCH")
