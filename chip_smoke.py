@@ -37,11 +37,29 @@ Phases, one JSON line each on standard output:
              ``index_add_`` with its bound share (bound ms / device ms),
              and at the 8,192-lane call the wrapper's host us per step
              (``wrapper_steps``);
+   hash_kernel — the hash table's probe kernel (``kernels.hash_insert``,
+             every probe round in one cooperative launch) against its
+             plain version on the card, exactly (rep, resolved and the
+             rounds run), at q1's page shape (262,144 lanes, 4 groups), a
+             page of ~n/7 groups, the largest cap the main path gives
+             (16,777,216 lanes), a ragged cap, zero key columns (a global
+             aggregation), nulls in the keys, and a near-full table under
+             one and under two rounds, where rows overflow; each timed back
+             to back, alone on the device (torch.profiler), once after an
+             idle card, beside its bytes bound and the plain version (no
+             single PyTorch call computes first-occurrence group ids: no
+             library time);
 5. q1_sf1  — TPC-H q1 at SF1 through ``trino_tpu_torch.LocalQueryRunner``
              on the card, held against the oracle answer in
              ``tests/sf1_expected.py``; every kernel launch counter is set
              to 0 just before the timed run and read just after, and the
-             kernel must have been called once per aggregated page;
+             segment-reduce kernel must have been called once per
+             aggregated page, the hash kernel once per hash-grouped page;
+             the cold run keeps the inputs of every hash kernel launch;
+   q1_hash, q3_hash, q18_hash — those launches (of q1's, q3's and q18's
+             cold runs) replayed against the plain version, exactly; the
+             call with the most lanes (the merge) and the page call with
+             the most live rows timed as in hash_kernel;
 6. q3_sf1  — TPC-H q3 at SF1 the same way: two hash joins (build sides
              orders and customer), the dynamic filters their builds put
              on the lineitem and orders scans, the aggregation over the
@@ -112,6 +130,9 @@ Phases, one JSON line each on standard output:
              lanes beside its partition's live rows, and every launch of
              their cold and warm runs kept and held against the plain
              version;
+    distributed_*_hash — every run's warm hash kernel launches (one per
+             hash-grouped page; at d = 4 the slabs' tasks launch at
+             once) replayed exactly, as q1_hash;
     distributed_q1_columns, distributed_q18_columns,
     distributed_q1_d4_columns, distributed_q18_d4_columns — those calls
              replayed like q3's, exact; timed: the partial step's page
@@ -137,6 +158,9 @@ Phases, one JSON line each on standard output:
              ``retry_policy=TASK`` with a worker killed on its first leaf
              task: the oracle's rows, one task retry inside attempt 0,
              the worker replaced by the runtime's heartbeat monitor;
+    process_q{1,3,18}_hash — every hash kernel launch of the cluster's
+             warm runs, kept by the process that made it, replayed here
+             exactly, as q1_hash;
     process_threads_q{1,3,18}_columns, process_q{1,3,18}_columns — the
              in-process runs' recorded calls, and every launch of the
              cluster's warm runs (written by each worker process, read
@@ -204,6 +228,9 @@ Phases, one JSON line each on standard output:
              equal to their serial runs);
              GET /v1/query/{id}, GET /v1/metrics and
              ``system.runtime.queries`` listing the statements above;
+    serving_q6_hash, serving_q1_hash, serving_q6d_hash — each burst's
+             hash kernel launches (one per folded hash-grouped page, the
+             lane a leading operand), kept and replayed exactly;
     serving_q6_columns, serving_q1_columns, serving_q6d_columns — the
              bursts' recorded folded calls replayed like q3's (ints,
              MIN and MAX exactly, float sums within SUM_RTOL), the
@@ -247,6 +274,16 @@ Phases, one JSON line each on standard output:
    ``process_q*_shapes``, ``spill_q18_shapes``,
    and ``observability_*_shapes``) and of the serving
    bursts' folded calls (``serving_shapes``);
+   The line's second entry is the hash kernel's: its route, source, the
+   JAX program it replaces (a jit ``while_loop``, not a Pallas kernel),
+   its launches on the main path (every run that counts segment-reduce
+   launches, each beside it; where the run's result carries operator
+   stats, equal to its hash-grouped pages), its error against the plain
+   version, its times, the plain version's and its bound at q1's page,
+   the rounds it ran, and the same at every hash_kernel input
+   (``case_shapes``) and at the timed calls of each replay
+   (``q1_shapes``, ``q3_shapes``, ``q18_shapes``, ``process_q*_shapes``,
+   ``distributed_*_shapes``, ``serving_*_burst_shapes``);
 19. the last line: ``{"ok": true, "device": {...}}``.
 
 Any failed check raises; nothing is caught, so a failed phase ends the
@@ -376,11 +413,12 @@ def build_phase():
     from trino_tpu_torch.ops import kernels
 
     t0 = time.perf_counter()
-    path = kernels.build()
+    paths = kernels.build()
     emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
           "flags": " ".join(kernels.NVCC_FLAGS),
-          "source": f"trino_tpu_torch/csrc/{kernels.SOURCE}",
-          "library": os.path.relpath(path, REPO)})
+          "sources": [f"trino_tpu_torch/csrc/{source}"
+                      for source in kernels.SOURCES],
+          "libraries": [os.path.relpath(path, REPO) for path in paths]})
 
 
 def _gids(rng, n: int, groups: int, live: int):
@@ -754,6 +792,239 @@ def columns_phase():
     return main, shapes
 
 
+#: the hash kernel's inputs (phase hash_kernel): name -> (rows, distinct
+#: values per key column (None: every row its own key), null share, probe
+#: rounds). q1's page (two keys of 3 and 2 values), a page of ~n/7 groups,
+#: the largest cap the main path gives (q18's merge), a ragged cap, a
+#: global aggregation, nulls in the keys, and a near-full table (load
+#: factor 1/2, every row its own key) under one and two rounds, where rows
+#: overflow
+HASH_CASES = {
+    "q1_page": (PAGE_ROWS, [3, 2], 0.0, 32),
+    "many_groups": (PAGE_ROWS, [PAGE_ROWS // 7], 0.0, 32),
+    "largest_cap": (16_777_216, [16_777_216 // 8], 0.0, 32),
+    "ragged_cap": (1_000_003, [1_000_003 // 7, 3], 0.0, 32),
+    "zero_keys": (PAGE_ROWS, [], 0.0, 32),
+    "nulls": (PAGE_ROWS, [50, 40], 0.3, 32),
+    "near_full_1_round": (PAGE_ROWS, [None], 0.0, 1),
+    "near_full_2_rounds": (PAGE_ROWS, [None], 0.0, 2),
+}
+
+
+def _hash_inputs(rng, n: int, distinct, null_share: float, dev):
+    """(key_ops, valid): a (uint8 null tag, int64 key) operand pair per key
+    column, as ``group_operands`` makes them, and a valid mask whose last
+    5% of lanes are dead."""
+    import numpy as np
+    import torch
+
+    ops = []
+    for d in distinct:
+        key = rng.permutation(n) if d is None else rng.integers(0, d, n)
+        key = key.astype(np.int64) * 1_000_003 - 11
+        null = rng.random(n) < null_share
+        ops += [torch.from_numpy(null.astype(np.uint8)).to(dev),
+                torch.from_numpy(np.where(null, 0, key)).to(dev)]
+    valid = torch.from_numpy(np.arange(n) < n - n // 20).to(dev)
+    return ops, valid
+
+
+def _hash_check(key_ops, valid, rounds: int, what: str) -> dict:
+    """The kernel against its plain version on one call's inputs, exactly:
+    rep, resolved and the rounds run. Returns the call's shape (rows,
+    live rows, operands, groups, rounds run, unresolved rows) and the
+    largest difference (0)."""
+    import torch
+
+    from trino_tpu_torch.ops import kernels
+
+    rep, resolved, taken = kernels.hash_insert(key_ops, valid, rounds)
+    want = kernels.hash_insert_reference(key_ops, valid, rounds)
+    err = max(int((rep.to(torch.int64) - want[0]).abs().max())
+              if rep.numel() else 0,
+              int((resolved != want[1]).sum()),
+              abs(int(taken) - int(want[2])))
+    if err:
+        raise AssertionError(f"{what}: hash_insert differs from its plain "
+                             f"version by {err}")
+    n = valid.shape[0]
+    leaders = valid & (rep == torch.arange(n, device=rep.device))
+    return {"n": n, "live": int(valid.sum()), "operands": len(key_ops),
+            "groups": int(leaders.sum()), "rounds": int(taken),
+            "unresolved": int((~resolved).sum()), "max_abs_err": err}
+
+
+def _hash_bound_ms(key_ops, n: int):
+    """(bound ms, bound_by, bytes) of one ``hash_insert`` call: the key
+    operands read twice (the hash, the compare), the valid mask once, the
+    table (table_size(n) int32) written once, rep and resolved written
+    once; against a few integer operations per operand and row."""
+    from trino_tpu_torch.ops import kernels
+
+    bytes_ = 2 * sum(op.nbytes for op in key_ops) + n \
+        + 4 * kernels.table_size(n) + 4 * n + n
+    bytes_ms = bytes_ / HBM_BYTES_PER_S * 1e3
+    ops_ms = n * (8 * len(key_ops) + 8) / VECTOR_OPS_PER_S * 1e3
+    return max(bytes_ms, ops_ms), \
+        "bytes" if bytes_ms >= ops_ms else "operations", bytes_
+
+
+def hash_device_ms(fn, iters: int = 10, attempts: int = 3):
+    """Device time per launch of the hash kernel (``probe_kernel``) that
+    ``fn`` launches once, from torch.profiler: the kernel alone, without
+    the wrapper's host work or the launch gap. None (not measured) when no
+    window recorded a launch."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total, count = 0.0, 0
+        for e in prof.key_averages():
+            if "probe_kernel" in e.key and e.device_type != DeviceType.CPU \
+                    and e.count:
+                total += e.self_device_time_total / 1e3
+                count += e.count
+        if count:
+            return total / count
+    return None
+
+
+def _time_hash(key_ops, valid, rounds: int, shape: dict) -> dict:
+    """The kernel's times on one call's inputs beside its bound and the
+    plain version's: back to back (``kernel_ms``, CUDA events over 20
+    calls, the wrapper included), alone (``device_ms``, the profiler's
+    kernel time), and one call after an idle card (``single_ms``, CUDA
+    events around one call, median of 5)."""
+    import statistics
+
+    import torch
+
+    from trino_tpu_torch.ops import kernels
+
+    def kernel():
+        kernels.hash_insert(key_ops, valid, rounds)
+
+    n = valid.shape[0]
+    single = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        kernel()
+        end.record()
+        end.synchronize()
+        single.append(start.elapsed_time(end))
+    bound_ms, bound_by, bytes_ = _hash_bound_ms(key_ops, n)
+    device = hash_device_ms(kernel)
+    return {**shape, "bytes": bytes_, "bound_ms": bound_ms,
+            "bound_by": bound_by, "kernel_ms": time_ms(kernel),
+            "single_ms": statistics.median(single), "device_ms": device,
+            "bound_share": _share(bound_ms, device),
+            "plain_ms": time_ms(lambda: kernels.hash_insert_reference(
+                key_ops, valid, rounds), iters=5),
+            "library_ms": None}
+
+
+def hash_kernel_phase():
+    """The hash kernel against its plain version at every input of
+    ``HASH_CASES``, exactly (rep, resolved and the rounds run); each timed
+    beside its bound and the plain version. No single PyTorch call
+    computes first-occurrence group ids, so there is no library time."""
+    import numpy as np
+    import torch
+
+    from trino_tpu_torch.ops import kernels
+
+    rng = np.random.default_rng(20261018)
+    dev = torch.device("cuda")
+    shapes = {}
+    for case, (n, distinct, null_share, rounds) in HASH_CASES.items():
+        ops, valid = _hash_inputs(rng, n, distinct, null_share, dev)
+        before = kernels.hash_insert.launches
+        kernels.hash_insert(ops, valid, rounds)
+        torch.cuda.synchronize()
+        if kernels.hash_insert.launches != before + 1:
+            raise AssertionError(f"hash_kernel {case}: "
+                                 f"{kernels.hash_insert.launches - before} "
+                                 "launches for one call")
+        shape = _hash_check(ops, valid, rounds, f"hash_kernel {case}")
+        if case.startswith("near_full") and not shape["unresolved"]:
+            raise AssertionError(f"hash_kernel {case}: no row overflowed")
+        shapes[case] = _time_hash(ops, valid, rounds, shape)
+        emit({"phase": "hash_kernel", "case": case, "probe_budget": rounds,
+              "null_share": null_share, **shapes[case]})
+        del ops, valid
+    return shapes
+
+
+def hash_replay_phase(phase: str, calls, page_by: str = "live"):
+    """Every recorded ``hash_insert`` launch of a run, on the inputs the
+    run gave it, against the plain version, exactly; then the call with
+    the most groups (the merge, the last of equals) and, of the others,
+    the one with the most ``page_by`` (the page) timed like the
+    hash_kernel phase's (``columns_replay_phase``'s picks)."""
+    if not calls:
+        raise AssertionError(f"{phase}: no hash_insert launch was kept")
+    shapes = [_hash_check(ops, valid, rounds, f"{phase} call {i}")
+              for i, (ops, valid, rounds) in enumerate(calls)]
+    emit({"phase": phase, "calls": len(calls),
+          "operands": sorted({s["operands"] for s in shapes}),
+          "rounds": sorted({s["rounds"] for s in shapes}),
+          "shapes": shapes, "max_abs_err": 0})
+    merge = max(range(len(calls)), key=lambda i: (shapes[i]["groups"], i))
+    picks = {"merge": merge}
+    others = [i for i in range(len(calls)) if i != merge]
+    if others:
+        picks["page"] = max(others, key=lambda i: shapes[i][page_by])
+    timed = {}
+    for case, i in picks.items():
+        ops, valid, rounds = calls[i]
+        timed[case] = {"call": i, **_time_hash(ops, valid, rounds,
+                                               shapes[i])}
+        emit({"phase": phase, "case": case, **timed[case]})
+    return timed
+
+
+def _hash_pages(res) -> int:
+    """Pages the run's aggregations grouped on the hash path (one hash
+    kernel launch each)."""
+    return sum(op.get("grouping_paths", {}).get("hash", 0)
+               for op in res.stats.get("operators", ())
+               if op["name"] == "HashAggregationOperator")
+
+
+#: the hash kernel's launches by run, under the keys of the segment-reduce
+#: entry's ``launches_by_query`` (``_hash_launched``)
+HASH_LAUNCHES = {}
+
+
+def _hash_launched(name: str, res=None, at_least: bool = False) -> int:
+    """The hash kernel's launches since the counters were last reset,
+    added to ``HASH_LAUNCHES[name]``. With ``res`` (the run's result) they
+    must equal its hash-grouped pages (``at_least``: be no fewer, where a
+    spilled merge re-groups reloaded partials in chunks)."""
+    from trino_tpu_torch.ops import kernels
+
+    made = kernels.hash_insert.launches
+    if res is not None:
+        pages = _hash_pages(res)
+        if made < pages or (made != pages and not at_least):
+            raise AssertionError(
+                f"{name}: hash_insert launched {made} times for {pages} "
+                "hash-grouped pages (want one per page)")
+    HASH_LAUNCHES[name] = HASH_LAUNCHES.get(name, 0) + made
+    return made
+
+
 def _load_expected(qid: int):
     """``EXPECTED[qid]`` of tests/sf1_expected.py, read as data."""
     path = os.path.join(REPO, "tests", "sf1_expected.py")
@@ -829,15 +1100,17 @@ def q1_phase(card, walls):
                               desired_splits=8, device="cuda")
     sql = TPCH_QUERIES[1]
     t0 = time.perf_counter()
-    runner.execute(sql)                       # cold: loads the library
+    kernels.record_calls(True, "hash_insert")
+    cold = runner.execute(sql)                # cold: loads the libraries
+    hash_calls = kernels.record_calls(False, "hash_insert")
     cold_s = time.perf_counter() - t0
     torch.cuda.synchronize()
-    kernels.segment_reduce.launches = 0
+    kernels.launch_counts(reset=True)
     t0 = time.perf_counter()
     res = runner.execute(sql)
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
-    launches = {"segment_reduce": kernels.segment_reduce.launches}
+    launches = kernels.launch_counts()
     walls[1] = round(warm_s, 4)
     _assert_same(res, _load_expected(1), "q1")
     pages = _aggregated_pages(res)
@@ -845,6 +1118,7 @@ def q1_phase(card, walls):
         raise AssertionError(
             f"segment_reduce launched {launches['segment_reduce']} times "
             f"for {pages} aggregated pages (want one per page)")
+    _check_hash_launches("q1", launches, res, cold, hash_calls)
     rows = sum(r[-1] for r in res.rows)       # count(*) over all groups
     emit({"phase": "q1_sf1", "rows_out": len(res.rows),
           "matches_oracle": True, "aggregated_pages": pages,
@@ -854,7 +1128,20 @@ def q1_phase(card, walls):
           "aggregated_rows_per_s": round(rows / warm_s),
           "peak_bytes": res.stats["memory"]["peak_bytes"],
           "card": card["nvidia_smi"]})
-    return launches
+    return launches, hash_calls
+
+
+def _check_hash_launches(query: str, launches: dict, res, cold,
+                         hash_calls) -> None:
+    """The hash kernel launched once per hash-grouped page of the warm
+    run, some, and the cold run kept one call per hash-grouped page."""
+    pages = _hash_pages(res)
+    if pages == 0 or launches["hash_insert"] != pages or \
+            len(hash_calls) != _hash_pages(cold):
+        raise AssertionError(
+            f"{query}: hash_insert launched {launches['hash_insert']} times "
+            f"for {pages} hash-grouped pages (cold run: {len(hash_calls)} "
+            f"kept for {_hash_pages(cold)}; want one per page, and some)")
 
 
 #: the aggregation step a thread's kernel call serves (``_step_labels``)
@@ -954,17 +1241,19 @@ def q3_phase(card, walls):
     sql = TPCH_QUERIES[3]
     calls = []
     t0 = time.perf_counter()
+    kernels.record_calls(True, "hash_insert")
     with _recorded(calls):
         cold = runner.execute(sql)
+    hash_calls = kernels.record_calls(False, "hash_insert")
     cold_s = time.perf_counter() - t0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    kernels.segment_reduce.launches = 0
+    kernels.launch_counts(reset=True)
     t0 = time.perf_counter()
     res = runner.execute(sql)
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
-    launches = {"segment_reduce": kernels.segment_reduce.launches}
+    launches = kernels.launch_counts()
     walls[3] = round(warm_s, 4)
     _assert_same(res, _load_expected(3), "q3")
     pages = _aggregated_pages(res)
@@ -975,6 +1264,7 @@ def q3_phase(card, walls):
             f"times (cold run: {len(calls)} calls for "
             f"{_aggregated_pages(cold)}) for {pages} aggregated pages "
             "(want one per page)")
+    _check_hash_launches("q3", launches, res, cold, hash_calls)
     dfs = res.stats["dynamic_filters"]
     joins = [{"name": op["name"],
               "strategy": op.get("strategy", "sorted-index"),
@@ -992,11 +1282,18 @@ def q3_phase(card, walls):
           "dynamic_filters": dfs, "joins": joins, "hbo": _hbo_note(res),
           "peak_bytes": res.stats["memory"]["peak_bytes"],
           # less the recorded inputs, which the warm run found resident
-          "device_peak_bytes": torch.cuda.max_memory_allocated() - sum(
-              t.nbytes for cols, gid, _, _, order in calls
-              for t in [*cols, gid] + ([] if order is None else [order])),
+          "device_peak_bytes": torch.cuda.max_memory_allocated()
+          - _recorded_bytes(calls, hash_calls),
           "card": card["nvidia_smi"]})
-    return launches, calls
+    return launches, calls, hash_calls
+
+
+def _recorded_bytes(calls, hash_calls) -> int:
+    """Device bytes held by the kept inputs of kernel calls."""
+    return sum(t.nbytes for cols, gid, _, _, order in calls
+               for t in [*cols, gid] + ([] if order is None else [order])) \
+        + sum(t.nbytes for ops, valid, _ in hash_calls
+              for t in [*ops, valid])
 
 
 def _hbo_note(res):
@@ -1030,11 +1327,13 @@ def _sf1_runner(device="cuda", schema="sf1"):
                             desired_splits=8, device=device)
 
 
-def tpch_sf1_phase(card, qid: int, walls, calls=None):
+def tpch_sf1_phase(card, qid: int, walls, calls=None, hash_calls=None):
     """TPC-H ``qid`` at SF1, held against the oracle; cold and warm wall,
-    segment-reduce calls (one per aggregated page) and the joins'
-    strategies. With ``calls``, the cold run keeps a copy of the inputs
-    of every kernel call it makes. Returns the warm run's launches."""
+    segment-reduce calls (one per aggregated page), hash kernel launches
+    (one per hash-grouped page) and the joins' strategies. With
+    ``calls`` (``hash_calls``), the cold run keeps a copy of the inputs
+    of every segment-reduce call (hash kernel launch) it makes. Returns
+    the warm run's launches of each kernel."""
     import torch
 
     from trino_tpu_torch.ops import kernels
@@ -1043,35 +1342,40 @@ def tpch_sf1_phase(card, qid: int, walls, calls=None):
     runner = _sf1_runner()
     sql = TPCH_QUERIES[qid]
     t0 = time.perf_counter()
+    kernels.record_calls(True, "hash_insert")
     with _recorded(calls) if calls is not None else contextlib.nullcontext():
         cold = runner.execute(sql)
+    kept = kernels.record_calls(False, "hash_insert")
     cold_s = time.perf_counter() - t0
+    if hash_calls is not None:
+        hash_calls.extend(kept)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    kernels.segment_reduce.launches = 0
+    kernels.launch_counts(reset=True)
     t0 = time.perf_counter()
     res = runner.execute(sql)
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
-    launches = kernels.segment_reduce.launches
+    launches = kernels.launch_counts()
     walls[qid] = round(warm_s, 4)
     _assert_same(res, _load_expected(qid), f"q{qid}")
     pages = _aggregated_pages(res)
-    if pages == 0 or launches != pages or \
+    if pages == 0 or launches["segment_reduce"] != pages or \
             (calls is not None and len(calls) != _aggregated_pages(cold)):
         raise AssertionError(
-            f"q{qid}: segment_reduce launched {launches} times (cold run: "
-            f"{None if calls is None else len(calls)} calls) for {pages} "
-            "aggregated pages (want one per page)")
+            f"q{qid}: segment_reduce launched {launches['segment_reduce']} "
+            f"times (cold run: {None if calls is None else len(calls)} "
+            f"calls) for {pages} aggregated pages (want one per page)")
+    _check_hash_launches(f"q{qid}", launches, res, cold, kept)
+    del kept
     emit({"phase": f"q{qid}_sf1", "rows_out": len(res.rows),
           "matches_oracle": True, "aggregated_pages": pages,
-          "launches": {"segment_reduce": launches},
+          "hash_pages": _hash_pages(res), "launches": launches,
           "cold_s": round(cold_s, 3), "warm_s": round(warm_s, 4),
           "joins": _join_strategies(res), "hbo": _hbo_note(res),
           "peak_bytes": res.stats["memory"]["peak_bytes"],
-          "device_peak_bytes": torch.cuda.max_memory_allocated() - sum(
-              t.nbytes for cols, gid, _, _, order in (calls or [])
-              for t in [*cols, gid] + ([] if order is None else [order])),
+          "device_peak_bytes": torch.cuda.max_memory_allocated()
+          - _recorded_bytes(calls or [], hash_calls or []),
           "card": card["nvidia_smi"]})
     return launches
 
@@ -1217,13 +1521,15 @@ def window_phase(card, schema: str = "sf1", device: str = "cuda"):
         cold_s = time.perf_counter() - t0
         if device == "cuda":
             torch.cuda.synchronize()
-        kernels.segment_reduce.launches = 0
+        kernels.launch_counts(reset=True)
         t0 = time.perf_counter()
         res = runner.execute(sql)
         if device == "cuda":
             torch.cuda.synchronize()
         warm_s = time.perf_counter() - t0
         launches += kernels.segment_reduce.launches
+        if device == "cuda":
+            _hash_launched("window", res)
         got = _unscaled(res.rows[0], res.types)
         if len(res.rows) != 1 or got != want[name]:
             raise AssertionError(f"{name}: engine {res.rows} "
@@ -1314,12 +1620,14 @@ def sql_surface_phase(card):
             {catalog: make()}, Session(catalog=catalog, schema=schema),
             device=dev) for dev in ("cuda", "cpu")}
         for name, sql in queries:
-            kernels.segment_reduce.launches = 0
+            kernels.launch_counts(reset=True)
             t0 = time.perf_counter()
-            got = runners["cuda"].execute(sql).rows
+            res = runners["cuda"].execute(sql)
+            got = res.rows
             torch.cuda.synchronize()
             t1 = time.perf_counter()
             launches += kernels.segment_reduce.launches
+            _hash_launched("sql_surface", res if res.stats else None)
             want = runners["cpu"].execute(sql).rows
             cpu_s += time.perf_counter() - t1
             card_s += t1 - t0
@@ -1429,12 +1737,13 @@ def memory_sf1_phase(card, tpch_warm, memory_warm):
             cold = runner.execute(sql)
         torch.cuda.synchronize()
         cold_s = time.perf_counter() - t0
-        kernels.segment_reduce.launches = 0
+        kernels.launch_counts(reset=True)
         t0 = time.perf_counter()
         res = runner.execute(sql)
         torch.cuda.synchronize()
         warm_s = time.perf_counter() - t0
         launches[qid] = kernels.segment_reduce.launches
+        _hash_launched(f"memory_q{qid}", res)
         memory_warm[qid] = round(warm_s, 4)
         _assert_same(res, _load_expected(qid), f"memory q{qid}")
         pages, cold_pages = _aggregated_pages(res), _aggregated_pages(cold)
@@ -1538,8 +1847,11 @@ def distributed_sf1_phase(card, runner, memory_warm):
     the card (``devices=["cuda:0"] * 4``): their warm walls stand beside
     the one-slab walls of the same run, each consumer page's lanes
     beside its live rows, and every launch of their cold and warm runs
-    is kept and held against the plain version. Returns the warm runs'
-    launches and the recorded (calls, labels)."""
+    is kept and held against the plain version. Every run's warm hash
+    kernel launches (one per hash-grouped page, the slabs' tasks
+    launching at once) are kept and replayed exactly. Returns the warm
+    runs' launches, the recorded (calls, labels) and the hash replays'
+    timed calls."""
     import torch
 
     from trino_tpu_torch.ops import kernels
@@ -1550,7 +1862,7 @@ def distributed_sf1_phase(card, runner, memory_warm):
 
     connectors = {name: conn for name, conn in
                   runner.metadata.connectors.items() if name != "system"}
-    launches, recorded, warm_walls = {}, {}, {}
+    launches, recorded, warm_walls, hash_replayed = {}, {}, {}, {}
     for name, qid, props, slabs in DISTRIBUTED_RUNS:
         session = Session(catalog="memory", schema="default")
         session.properties.update(props)
@@ -1572,15 +1884,22 @@ def distributed_sf1_phase(card, runner, memory_warm):
         if slabs > 1 and name not in DISTRIBUTED_RECORDED:
             kept["cold"] = kernels.record_calls(False)
         _assert_same(cold, _load_expected(qid), f"distributed {name} cold")
-        kernels.segment_reduce.launches = 0
+        kernels.launch_counts(reset=True)
         exchanges0 = DeviceExchange.total_collectives
         if slabs > 1:
             kernels.record_calls(True)
+        kernels.record_calls(True, "hash_insert")
         t0 = time.perf_counter()
         res = dist.execute(sql)
         torch.cuda.synchronize()
         warm_s = time.perf_counter() - t0
+        hash_calls = kernels.record_calls(False, "hash_insert")
         launches[name] = kernels.segment_reduce.launches
+        hash_made = _hash_launched(f"distributed_{name}", res)
+        if hash_made == 0 or len(hash_calls) != hash_made:
+            raise AssertionError(
+                f"distributed {name}: {len(hash_calls)} hash_insert calls "
+                f"kept for {hash_made} launches (want some)")
         if slabs > 1:
             kept["warm"] = kernels.record_calls(False)
             if len(kept["warm"]) != launches[name]:
@@ -1618,6 +1937,9 @@ def distributed_sf1_phase(card, runner, memory_warm):
         replay = {run: {"calls": len(c), "max_abs_err": _check_kept(
             c, f"distributed {name} {run}")} for run, c in kept.items()}
         kept.clear()
+        hash_replayed[name] = hash_replay_phase(f"distributed_{name}_hash",
+                                                hash_calls)
+        del hash_calls
         emit({"phase": "distributed_sf1", "query": name,
               "workers": DISTRIBUTED_WORKERS, "properties": props,
               "device_slabs": slabs,
@@ -1629,7 +1951,8 @@ def distributed_sf1_phase(card, runner, memory_warm):
               "consumer_pages": _consumer_pages(res),
               "kept_calls_replayed": replay or None,
               "device_busy_share": _busy_share(lambda: dist.execute(sql)),
-              "launches": {"segment_reduce": launches[name]},
+              "launches": {"segment_reduce": launches[name],
+                           "hash_insert": hash_made},
               "cold_calls_by_step": steps or None,
               "device_exchanges": exchanges,
               "exchanges": _exchange_summary(res),
@@ -1637,7 +1960,7 @@ def distributed_sf1_phase(card, runner, memory_warm):
               "hbo": _hbo_note(res),
               "peak_bytes": res.stats["memory"]["peak_bytes"],
               "card": card["nvidia_smi"]})
-    return launches, recorded
+    return launches, recorded, hash_replayed
 
 
 def _np_partition_ids(keys, n: int):
@@ -1793,7 +2116,7 @@ def mesh_q1_sf1_phase(card):
                  "cold"))
     for name, kwargs, run in runs:
         stats = {}
-        kernels.segment_reduce.launches = 0
+        kernels.launch_counts(reset=True)
         kernels.record_calls(True)
         t0 = time.perf_counter()
         rows, retries, _conn, _pages = run_q1_mesh(
@@ -1822,6 +2145,7 @@ def mesh_q1_sf1_phase(card):
         del calls
         if run == "warm":
             launches[f"mesh_q1_{name}"] = made
+            _hash_launched(f"mesh_q1_{name}")
         emit({"phase": "mesh_q1_sf1", "strategy": name, "run": run,
               "device_slabs": len(MESH_SLABS), "rows_out": len(rows),
               "matches_oracle": True, "agg_strategy": strategy,
@@ -1867,7 +2191,7 @@ def device_step_sf1_phase(card):
     luts = proc._fill_luts(dp.dictionaries, dp.device)
     args = (tuple(dp.cols), tuple(dp.nulls), dp.valid, luts)
     step(*args)                                   # warm
-    kernels.segment_reduce.launches = 0
+    kernels.launch_counts(reset=True)
     kernels.record_calls(True)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1876,9 +2200,11 @@ def device_step_sf1_phase(card):
     wall = time.perf_counter() - t0
     calls = kernels.record_calls(False)
     made = kernels.segment_reduce.launches
-    if made != 1 or len(calls) != 1:
+    if made != 1 or len(calls) != 1 or _hash_launched("device_step") != 1:
         raise AssertionError(f"q1_device_step: {made} launches, "
-                             f"{len(calls)} kept, want 1")
+                             f"{len(calls)} kept, "
+                             f"{HASH_LAUNCHES['device_step']} hash "
+                             "launches, want 1 each")
     err = _check_kept(calls, "q1_device_step")
     # the oracle: the sort path's plain version on the CPU
     _proj, _filt, aggs = q1_expressions(dp.types)
@@ -1969,9 +2295,11 @@ def process_sf1_phase(card, tpch_warm, dump_dir):
     ``kill-worker`` fault on its first leaf task: the oracle's rows, one
     task retry inside attempt 0, and the dead worker replaced by the
     runtime's heartbeat monitor (the script calls no heal). The runner
-    closes in a ``finally``, so no worker outlives the script. Returns
-    the warm runs' launches (summed over the processes) and the
-    replays' timed calls."""
+    closes in a ``finally``, so no worker outlives the script. The
+    cluster's warm runs also count and keep every hash kernel launch per
+    process, replayed here exactly. Returns the warm runs' launches
+    (summed over the processes), the replays' timed calls, and the same
+    two for the hash kernel."""
     import torch
 
     from trino_tpu_torch.connectors.tpch import TpchConnector
@@ -1983,7 +2311,7 @@ def process_sf1_phase(card, tpch_warm, dump_dir):
     from trino_tpu_torch.resources.tpch_queries import TPCH_QUERIES
     from trino_tpu_torch.sql.analyzer import Session
 
-    launches, replayed = {}, {}
+    launches, replayed, hash_launches, hash_replayed = {}, {}, {}, {}
     # the same plan shape in one process: the in-process distributed
     # runner over the generator, as many tasks per stage
     threads = DistributedQueryRunner(
@@ -2002,12 +2330,13 @@ def process_sf1_phase(card, tpch_warm, dump_dir):
             raise AssertionError(
                 f"in-process q{qid}: the cold run recorded {len(calls)} "
                 f"calls for {_kernel_calls(cold)} pages")
-        kernels.segment_reduce.launches = 0
+        kernels.launch_counts(reset=True)
         t0 = time.perf_counter()
         res = threads.execute(sql)
         torch.cuda.synchronize()
         threads_warm[qid] = round(time.perf_counter() - t0, 4)
         launches[name] = kernels.segment_reduce.launches
+        _hash_launched(name, res)
         _assert_same(res, _load_expected(qid), f"in-process q{qid}")
         if launches[name] == 0 or launches[name] != _kernel_calls(res):
             raise AssertionError(
@@ -2051,13 +2380,20 @@ def process_sf1_phase(card, tpch_warm, dump_dir):
             _assert_same(cold, _load_expected(qid), f"process q{qid} cold")
             runner.kernel_launches(reset=True)
             runner.record_kernel_calls()
+            runner.record_kernel_calls(kernel="hash_insert")
             t0 = time.perf_counter()
             res = runner.execute(sql)
             torch.cuda.synchronize()
             warm_s = time.perf_counter() - t0
-            by_process = {proc: counts["segment_reduce"] for proc, counts
-                          in runner.kernel_launches().items()}
+            counts = runner.kernel_launches()
+            by_process = {proc: n["segment_reduce"]
+                          for proc, n in counts.items()}
+            hash_by_process = {proc: n["hash_insert"]
+                               for proc, n in counts.items()}
             kept = runner.record_kernel_calls(dump_dir)
+            hash_dir = os.path.join(dump_dir, "hash")
+            os.makedirs(hash_dir, exist_ok=True)
+            hash_kept = runner.record_kernel_calls(hash_dir, "hash_insert")
             _assert_same(res, _load_expected(qid), f"process q{qid}")
             idle = [proc for proc, n in by_process.items()
                     if n == 0 and proc != "coordinator"]
@@ -2066,11 +2402,15 @@ def process_sf1_phase(card, tpch_warm, dump_dir):
                     f"process q{qid}: segment_reduce launches per process "
                     f"{by_process} (want some, and in every worker for "
                     "q1)")
-            if kept != by_process:
+            if kept != by_process or hash_kept != hash_by_process or \
+                    sum(hash_by_process.values()) == 0:
                 raise AssertionError(
                     f"process q{qid}: calls kept per process {kept} for "
-                    f"launches {by_process}")
+                    f"launches {by_process}; hash_insert calls kept "
+                    f"{hash_kept} for launches {hash_by_process} (want "
+                    "some)")
             launches[name] = sum(by_process.values())
+            hash_launches[name] = sum(hash_by_process.values())
             emit({"phase": "process_sf1", "query": f"q{qid}",
                   "workers": PROCESS_WORKERS, "rows_out": len(res.rows),
                   "matches_oracle": True, "spawn_s": round(spawn_s, 3),
@@ -2078,6 +2418,7 @@ def process_sf1_phase(card, tpch_warm, dump_dir):
                   "local_generator_warm_s": tpch_warm.get(qid),
                   "in_process_distributed_warm_s": threads_warm[qid],
                   "launches_by_process": by_process,
+                  "hash_launches_by_process": hash_by_process,
                   "node_max_memory_bytes": card_bytes // 3,
                   "memory_peak_bytes":
                       (res.stats.get("memory") or {}).get("peak_bytes"),
@@ -2091,6 +2432,10 @@ def process_sf1_phase(card, tpch_warm, dump_dir):
                                  for proc in sorted(kept)])
             replayed[name] = columns_replay_phase(f"{name}_columns", calls,
                                                   "live")
+            del calls
+            calls = _load_calls([os.path.join(hash_dir, f"{proc}.pt")
+                                 for proc in sorted(hash_kept)])
+            hash_replayed[name] = hash_replay_phase(f"{name}_hash", calls)
             del calls
         # the profiler's view: each worker process's kernel calls
         session.properties["query_profiling_enabled"] = True
@@ -2167,7 +2512,7 @@ def process_sf1_phase(card, tpch_warm, dump_dir):
               "pids": [pids, new_pids], "card": card["nvidia_smi"]})
     finally:
         runner.close()
-    return launches, replayed
+    return launches, replayed, hash_launches, hash_replayed
 
 
 def _step_picks(calls, labels) -> dict:
@@ -2211,12 +2556,13 @@ def explain_analyze_phase(card, runner):
     from trino_tpu_torch.ops import kernels
     from trino_tpu_torch.resources.tpch_queries import TPCH_QUERIES
 
-    kernels.segment_reduce.launches = 0
+    kernels.launch_counts(reset=True)
     t0 = time.perf_counter()
     lines = [r[0] for r in runner.execute(
         "explain analyze " + TPCH_QUERIES[18]).rows]
     wall = time.perf_counter() - t0
     launches = kernels.segment_reduce.launches
+    _hash_launched("explain_analyze_q18")
     blank = lines.index("")
     query = re.fullmatch(r"Query: ([0-9.]+)ms, (\d+) rows", lines[blank + 1])
     memory = re.fullmatch(r"Memory: peak \d+ bytes, \d+ spills \(\d+ "
@@ -2266,7 +2612,7 @@ SPILL_SORT_SQL = ("select o_orderkey, o_totalprice, o_orderdate from orders "
                   "order by o_totalprice desc, o_orderkey")
 
 
-def _spill_run(runner, sql, props, calls=None):
+def _spill_run(runner, sql, props, calls=None, key=None):
     """One statement under the session properties ``props`` (restored
     afterwards): (result, wall seconds, segment-reduce calls). With
     ``calls``, it keeps a copy of the inputs of every kernel call."""
@@ -2277,12 +2623,14 @@ def _spill_run(runner, sql, props, calls=None):
     saved = dict(runner.session.properties)
     runner.session.properties.update(props)
     try:
-        kernels.segment_reduce.launches = 0
+        kernels.launch_counts(reset=True)
         t0 = time.perf_counter()
         with _recorded(calls) if calls is not None \
                 else contextlib.nullcontext():
             res = runner.execute(sql)
         torch.cuda.synchronize()
+        if key is not None:
+            _hash_launched(key, res, at_least=True)
         return res, time.perf_counter() - t0, kernels.segment_reduce.launches
     finally:
         runner.session.properties.clear()
@@ -2319,7 +2667,8 @@ def spill_phase(card, runner, peaks):
     cap = peaks[18] * 3 // 4
     res, wall, n = _spill_run(runner, TPCH_QUERIES[18], {
         "query_max_memory_bytes": cap, "spill_enabled": True,
-        "spill_to_disk_enabled": True, "spill_host_memory_bytes": 0}, calls)
+        "spill_to_disk_enabled": True, "spill_host_memory_bytes": 0}, calls,
+        "spill_q18")
     _assert_same(res, _load_expected(18), "spilled q18")
     rec = _spill_record(res, wall, n)
     if not (rec["spill_events"] > 0 and rec["disk_spill_events"] > 0
@@ -2333,10 +2682,12 @@ def spill_phase(card, runner, peaks):
           "unspilled_peak_bytes": peaks[18], **rec,
           "card": card["nvidia_smi"]})
     # (b) the hybrid join
-    free, free_wall, free_n = _spill_run(runner, SPILL_JOIN_SQL, {})
+    free, free_wall, free_n = _spill_run(runner, SPILL_JOIN_SQL, {},
+                                         key="spill_join")
     cap = free.stats["memory"]["peak_bytes"] // 8
     res, wall, n = _spill_run(runner, SPILL_JOIN_SQL, {
-        "query_max_memory_bytes": cap, "spill_enabled": True})
+        "query_max_memory_bytes": cap, "spill_enabled": True},
+        key="spill_join")
     rec = _spill_record(res, wall, n)
     # cold partitions join after the resident stream: compare as sets
     if sorted(res.rows) != sorted(free.rows) or not (
@@ -2355,7 +2706,7 @@ def spill_phase(card, runner, peaks):
     free, free_wall, _ = _spill_run(runner, SPILL_SORT_SQL, {})
     cap = free.stats["memory"]["peak_bytes"] // 2
     res, wall, n = _spill_run(runner, SPILL_SORT_SQL, {
-        "query_max_memory_bytes": cap})
+        "query_max_memory_bytes": cap}, key="spill_sort")
     rec = _spill_record(res, wall, n)
     if res.rows != free.rows or rec["peak_bytes"] > cap \
             or rec["spill_events"]:
@@ -2478,14 +2829,19 @@ def _admission_batches(srv) -> dict:
         "trino_http_admission_batches_total", {})
 
 
-def _serving_burst(card, srv, runner, name, sqls, oracle_qid, calls):
+def _serving_burst(card, srv, runner, name, sqls, oracle_qid, calls,
+                   hash_calls):
     """One burst of eight same-shape statements over HTTP: one admission
     batch of 8 on a plan template, the aggregation through the folded
     kernel calls (recorded in ``calls``), every member equal to the
     engine's serial run of its text and, with ``oracle_qid``, the first
     member to that query's oracle rows; at most as many kernel calls as
-    one serial run. Then the same burst again, recording nothing: the
-    same rows and calls. Returns the launches of both."""
+    one serial run. The hash kernel's launches are kept in
+    ``hash_calls``: one per folded hash-grouped page, so as many as the
+    segment-reduce calls when the serial run groups every page on the
+    hash path, else no more than the serial run's. Then the same burst
+    again, recording nothing: the same rows and calls. Returns the
+    launches of both."""
     import torch
 
     from trino_tpu_torch.ops import kernels
@@ -2494,11 +2850,14 @@ def _serving_burst(card, srv, runner, name, sqls, oracle_qid, calls):
     disp0 = dict(runner.query_cache.templates.dispositions)
     launched0 = runner.query_cache.batched_launches
     torch.cuda.synchronize()
-    kernels.segment_reduce.launches = 0
+    kernels.launch_counts(reset=True)
+    kernels.record_calls(True, "hash_insert")
     with _recorded(calls):
         out, wall = _burst(srv, sqls)
     torch.cuda.synchronize()
+    hash_calls.extend(kernels.record_calls(False, "hash_insert"))
     burst_launches = kernels.segment_reduce.launches
+    burst_hash = _hash_launched(f"serving_{name}_burst")
     bad = [o for o in out if isinstance(o, Exception)]
     if bad:
         raise AssertionError(f"{name} burst: {bad[0]!r}")
@@ -2518,15 +2877,19 @@ def _serving_burst(card, srv, runner, name, sqls, oracle_qid, calls):
     # template), launches of the first member counted
     runner.session.properties["batched_execution_enabled"] = False
     serial_walls, serial_launches = [], None
+    serial_hash, serial_all_hash = None, False
     try:
         for i, sql in enumerate(sqls):
-            kernels.segment_reduce.launches = 0
+            kernels.launch_counts(reset=True)
             t0 = time.perf_counter()
             want = runner.execute(sql)
             torch.cuda.synchronize()
             serial_walls.append(round(time.perf_counter() - t0, 4))
             if serial_launches is None:
                 serial_launches = kernels.segment_reduce.launches
+                serial_hash = kernels.hash_insert.launches
+                serial_all_hash = _hash_pages(want) == \
+                    _aggregated_pages(want)
             if want.stats.get("plan_template") != "hit":
                 raise AssertionError(f"{name} serial {i}: not templated")
             got = _http_result(out[i]).rows
@@ -2543,18 +2906,26 @@ def _serving_burst(card, srv, runner, name, sqls, oracle_qid, calls):
         raise AssertionError(
             f"{name} burst: {burst_launches} kernel calls ({len(calls)} "
             f"recorded), one serial run makes {serial_launches}")
+    if burst_hash != len(hash_calls) or burst_hash > serial_hash or (
+            serial_all_hash and burst_hash != burst_launches) or (
+            serial_hash and not burst_hash):
+        raise AssertionError(
+            f"{name} burst: {burst_hash} hash_insert launches "
+            f"({len(hash_calls)} kept) for {burst_launches} folded pages; "
+            f"one serial run makes {serial_hash}")
     # the same burst again, recording nothing: the first burst's wall
     # holds the copies of its recorded inputs and is the shape's first
     # burst in the process
     torch.cuda.synchronize()
-    kernels.segment_reduce.launches = 0
+    kernels.launch_counts(reset=True)
     again, repeat_wall = _burst(srv, sqls)
     torch.cuda.synchronize()
     repeat_launches = kernels.segment_reduce.launches
     if any(isinstance(o, Exception) for o in again) or \
             [sorted(map(str, _http_result(o).rows)) for o in again] != \
             [sorted(map(str, _http_result(o).rows)) for o in out] or \
-            repeat_launches != burst_launches:
+            repeat_launches != burst_launches or \
+            _hash_launched(f"serving_{name}_burst_repeat") != burst_hash:
         raise AssertionError(f"{name} burst repeat: {again}, "
                              f"{repeat_launches} kernel calls")
     emit({"phase": "serving_sf1", "step": f"{name}_burst",
@@ -2563,8 +2934,10 @@ def _serving_burst(card, srv, runner, name, sqls, oracle_qid, calls):
           "repeat_burst_wall_s": round(repeat_wall, 4),
           "serial_walls_s": serial_walls,
           "serial_wall_sum_s": round(sum(serial_walls), 4),
-          "launches": {"segment_reduce": burst_launches},
-          "serial_launches": {"segment_reduce": serial_launches},
+          "launches": {"segment_reduce": burst_launches,
+                       "hash_insert": burst_hash},
+          "serial_launches": {"segment_reduce": serial_launches,
+                              "hash_insert": serial_hash},
           "segments_per_call": sorted({c[2] for c in calls}),
           "rows_per_call": sorted({c[1].shape[0] for c in calls}),
           "matches_serial": True,
@@ -2582,7 +2955,8 @@ def serving_phase(card, runner):
     kernel launch); a q6-shape and a q1-shape burst of eight; a denied
     user and a failing member of a burst; /v1/query/{id}, /v1/metrics
     and system.runtime.queries. Returns the
-    launches per step and the recorded folded calls per burst."""
+    launches per step, the recorded folded calls per burst and the
+    bursts' kept hash kernel calls."""
     import json
     import urllib.request
 
@@ -2613,16 +2987,18 @@ def serving_phase(card, runner):
     srv = ProtocolServer(runner, host="127.0.0.1", port=0).start()
     client = Client(srv.uri)
     launches, calls = {}, {"q6": [], "q1": [], "q6d": []}
+    hash_calls = {"q6": [], "q1": [], "q6d": []}
     qids = {}
     try:
         for qid in MEMORY_QUERIES:
             sql = TPCH_QUERIES[qid]
             torch.cuda.synchronize()
-            kernels.segment_reduce.launches = 0
+            kernels.launch_counts(reset=True)
             t0 = time.perf_counter()
             res = client.execute(sql)
             wall = time.perf_counter() - t0
             launches[f"http_q{qid}"] = kernels.segment_reduce.launches
+            _hash_launched(f"serving_http_q{qid}")
             _assert_same(_http_result(res), _load_expected(qid),
                          f"http q{qid}")
             emit({"phase": "serving_sf1", "step": "single",
@@ -2644,11 +3020,12 @@ def serving_phase(card, runner):
         client.execute("set session result_cache_enabled = true")
         client.execute(q1)                    # new keyspace: stores
         torch.cuda.synchronize()
-        kernels.segment_reduce.launches = 0
+        kernels.launch_counts(reset=True)
         t0 = time.perf_counter()
         again = client.execute(q1)
         wall = time.perf_counter() - t0
-        hit_launches = kernels.segment_reduce.launches
+        hit_launches = kernels.segment_reduce.launches \
+            + kernels.hash_insert.launches
         client.execute("set session result_cache_enabled = false")
         if served[q1].get("result_cache") != "hit" or hit_launches or \
                 again.rows != rows1:
@@ -2662,14 +3039,15 @@ def serving_phase(card, runner):
         launches.update(_serving_burst(
             card, srv, runner, "q6",
             [SERVING_Q6_SQL % (c, c, q) for c, q in SERVING_Q6_ARGS], 6,
-            calls["q6"]))
+            calls["q6"], hash_calls["q6"]))
         launches.update(_serving_burst(
             card, srv, runner, "q1",
-            [SERVING_Q1_SQL % k for k in SERVING_Q1_ARGS], 1, calls["q1"]))
+            [SERVING_Q1_SQL % k for k in SERVING_Q1_ARGS], 1, calls["q1"],
+            hash_calls["q1"]))
         launches.update(_serving_burst(
             card, srv, runner, "q6d",
             [SERVING_Q6D_SQL % (c, c, q) for c, q in SERVING_Q6_ARGS], None,
-            calls["q6d"]))
+            calls["q6d"], hash_calls["q6d"]))
         # errors: a denied user, and a member of a burst whose literal
         # has another type (it leaves the batch and fails alone)
         runner.access_control = RuleBasedAccessControl([
@@ -2750,7 +3128,7 @@ def serving_phase(card, runner):
     finally:
         srv.stop()
         del runner.execute_batch
-    return launches, calls
+    return launches, calls, hash_calls
 
 
 #: the families a metrics scrape must carry: program first calls, the
@@ -2805,7 +3183,7 @@ def observability_phase(card, runner):
 
     def run(sql, key, record=False):
         torch.cuda.synchronize()
-        kernels.segment_reduce.launches = 0
+        kernels.launch_counts(reset=True)
         calls = None
         if record:
             calls = recorded[key] = []
@@ -2814,6 +3192,8 @@ def observability_phase(card, runner):
             res = runner.execute(sql)
         torch.cuda.synchronize()
         launches[key] = kernels.segment_reduce.launches
+        # an EXPLAIN ANALYZE's result carries no operator stats
+        _hash_launched(key, res if res.stats else None)
         if record and len(calls) != launches[key]:
             raise AssertionError(f"{key}: {len(calls)} calls recorded for "
                                  f"{launches[key]} launches")
@@ -3058,6 +3438,13 @@ def columns_replay_phase(phase: str, calls, page_by: str,
     return timed
 
 
+#: what the kernels line keeps of each timed hash kernel call
+HASH_KEYS = ("n", "live", "operands", "groups", "rounds", "unresolved",
+             "max_abs_err", "kernel_ms", "device_ms", "single_ms",
+             "plain_ms", "bound_ms", "bound_by", "bound_share",
+             "library_ms")
+
+
 def main() -> int:
     import torch
 
@@ -3073,17 +3460,26 @@ def main() -> int:
     build_phase()
     kernel_phase()
     main_shape, columns_shapes = columns_phase()
+    hash_shapes = hash_kernel_phase()
     tpch_warm = {}
-    q1_launches = q1_phase(card, tpch_warm)
-    q3_launches, q3_calls = q3_phase(card, tpch_warm)
-    launches = {"q1": q1_launches["segment_reduce"],
-                "q3": q3_launches["segment_reduce"]}
+    q1_launches, q1_hash_calls = q1_phase(card, tpch_warm)
+    hash_replayed = {"q1": hash_replay_phase("q1_hash", q1_hash_calls)}
+    del q1_hash_calls
+    q3_launches, q3_calls, q3_hash_calls = q3_phase(card, tpch_warm)
+    hash_replayed["q3"] = hash_replay_phase("q3_hash", q3_hash_calls)
+    del q3_hash_calls
+    by_query = {"q1": q1_launches, "q3": q3_launches}
     q3_shapes = columns_replay_phase("q3_columns", q3_calls, "n")
     del q3_calls
-    launches["q6"] = tpch_sf1_phase(card, 6, tpch_warm)
-    launches["q13"] = tpch_sf1_phase(card, 13, tpch_warm)
-    q18_calls = []
-    launches["q18"] = tpch_sf1_phase(card, 18, tpch_warm, q18_calls)
+    by_query["q6"] = tpch_sf1_phase(card, 6, tpch_warm)
+    by_query["q13"] = tpch_sf1_phase(card, 13, tpch_warm)
+    q18_calls, q18_hash_calls = [], []
+    by_query["q18"] = tpch_sf1_phase(card, 18, tpch_warm, q18_calls,
+                                     q18_hash_calls)
+    hash_replayed["q18"] = hash_replay_phase("q18_hash", q18_hash_calls)
+    del q18_hash_calls
+    launches = {q: n["segment_reduce"] for q, n in by_query.items()}
+    hash_launches = {q: n["hash_insert"] for q, n in by_query.items()}
     q18_shapes = columns_replay_phase("q18_columns", q18_calls, "live")
     del q18_calls
     launches["window"] = window_phase(card)
@@ -3096,8 +3492,10 @@ def main() -> int:
     for qid, page_by in ((3, "n"), (18, "live")):
         replayed[f"memory_q{qid}"] = columns_replay_phase(
             f"memory_q{qid}_columns", memory_calls.pop(qid), page_by)
-    distributed_launches, distributed_calls = distributed_sf1_phase(
-        card, runner, memory_warm)
+    distributed_launches, distributed_calls, distributed_hash = \
+        distributed_sf1_phase(card, runner, memory_warm)
+    hash_replayed.update({f"distributed_{name}": shapes
+                          for name, shapes in distributed_hash.items()})
     launches.update({f"distributed_{name}": n
                      for name, n in distributed_launches.items()})
     for name in DISTRIBUTED_RECORDED:
@@ -3107,10 +3505,12 @@ def main() -> int:
             picks=_step_picks(calls, labels))
         del calls
     with tempfile.TemporaryDirectory(prefix="chip_smoke_calls_") as dump:
-        process_launches, process_shapes = process_sf1_phase(
-            card, tpch_warm, dump)
+        process_launches, process_shapes, process_hash_launches, \
+            process_hash_shapes = process_sf1_phase(card, tpch_warm, dump)
     launches.update(process_launches)
     replayed.update(process_shapes)
+    hash_launches.update(process_hash_launches)
+    hash_replayed.update(process_hash_shapes)
     mesh_exchange_phase(card)
     mesh_launches, mesh_calls = mesh_q1_sf1_phase(card)
     launches.update(mesh_launches)
@@ -3136,7 +3536,11 @@ def main() -> int:
     replayed["spill_q18"] = columns_replay_phase("spill_q18_columns",
                                                  spill_calls, "live")
     del spill_calls
-    serving_launches, serving_calls = serving_phase(card, runner)
+    serving_launches, serving_calls, serving_hash_calls = serving_phase(
+        card, runner)
+    for name in ("q6", "q1", "q6d"):
+        hash_replayed[f"serving_{name}_burst"] = hash_replay_phase(
+            f"serving_{name}_hash", serving_hash_calls.pop(name))
     launches.update({f"serving_{k}": n for k, n in serving_launches.items()})
     observability_launches, profiled_calls, observability_calls = \
         observability_phase(card, runner)
@@ -3155,6 +3559,7 @@ def main() -> int:
         for name in ("q6", "q1", "q6d")}
     bytes_ms = main_shape["bytes"] / HBM_BYTES_PER_S * 1e3
     ops_ms = main_shape["n"] * STATES_PER_PAGE / VECTOR_OPS_PER_S * 1e3
+    hash_launches.update(HASH_LAUNCHES)
     emit({"phase": "wall", "script_s": round(time.perf_counter() - T0, 1)})
     emit({"kernels": [{
         "name": "segment_reduce",
@@ -3188,6 +3593,29 @@ def main() -> int:
             "bound_ms", "bound_by", "bound_share", "library_ms")}
             for case, t in shapes.items()}
             for burst, shapes in serving_shapes.items()},
+    }, {
+        "name": "hash_insert",
+        "route": "cuda",
+        "source": "trino_tpu_torch/csrc/hash_insert.cu",
+        # a jit jax.lax.while_loop inside the hash_group_ids program, not
+        # a Pallas kernel
+        "replaces": "trino_tpu/ops/hashtable.py:153",
+        "launches": sum(hash_launches.values()),
+        "launches_by_query": hash_launches,
+        "max_abs_err": max(t["max_abs_err"] for t in hash_shapes.values()),
+        "ms": hash_shapes["q1_page"]["kernel_ms"],
+        "device_ms": hash_shapes["q1_page"]["device_ms"],
+        "single_ms": hash_shapes["q1_page"]["single_ms"],
+        "plain_ms": hash_shapes["q1_page"]["plain_ms"],
+        "bound_ms": hash_shapes["q1_page"]["bound_ms"],
+        "bound_by": hash_shapes["q1_page"]["bound_by"],
+        "library_ms": None,
+        "rounds": hash_shapes["q1_page"]["rounds"],
+        "case_shapes": {case: {k: t[k] for k in HASH_KEYS}
+                        for case, t in hash_shapes.items()},
+        **{f"{q}_shapes": {case: {k: t[k] for k in HASH_KEYS}
+                           for case, t in shapes.items()}
+           for q, shapes in hash_replayed.items()},
     }]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": card["kind"],
                                  "count": card["count"]}})

@@ -44,9 +44,10 @@ import ctypes
 import importlib.util
 import json
 import os
-import subprocess
 import sys
 import time
+
+import ab_turns
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SEED = 20261017
@@ -256,23 +257,17 @@ def main() -> int:
         return 0
     if not args.parent:
         ap.error("--parent is required")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], check=True,
-                         capture_output=True, text=True).stdout.strip()
+    smi = ab_turns.card()
     print(smi, flush=True)
     trees = {"parent": os.path.abspath(args.parent), "change": REPO}
     results = {}
-    for _ in range(args.runs):
-        for label in ("parent", "change", "change", "parent"):
-            done = subprocess.run(
-                [sys.executable, os.path.abspath(__file__), "--tree",
-                 trees[label], "--label", label, "--cases", args.cases],
-                check=True, stdout=subprocess.PIPE, text=True)
-            for line in done.stdout.splitlines():
-                print(line, flush=True)
-                rec = json.loads(line)
-                results.setdefault(rec["case"], {}).setdefault(
-                    label, []).append(rec)
+    for label, _turn, records in ab_turns.turns(
+            trees, args.runs, lambda label, _turn: [
+                sys.executable, os.path.abspath(__file__), "--tree",
+                trees[label], "--label", label, "--cases", args.cases]):
+        for rec in records:
+            results.setdefault(rec["case"], {}).setdefault(
+                label, []).append(rec)
     keys = ("device_ms", "kernel_ms", "library_ms", "bound_share",
             "host_us")
     for case, by_tree in results.items():

@@ -24,6 +24,9 @@ from trino_tpu_torch.sql.analyzer import Session
 
 # the kernel design's edge cases (imports neither jax nor trino_tpu)
 from test_torch_segment_reduce_plan import EDGE_CASES, edge_gids
+# the hash kernel's inputs: chip_smoke.py's hash_kernel phase, which
+# imports nothing at module level beyond the standard library
+from chip_smoke import HASH_CASES, _hash_inputs
 
 pytestmark = pytest.mark.cuda
 
@@ -682,16 +685,32 @@ def test_process_cluster_on_the_card_equals_the_cpu(dev, tmp_path):
         for qid in (1, 3):
             cluster.kernel_launches(reset=True)
             cluster.record_kernel_calls()
+            cluster.record_kernel_calls(kernel="hash_insert")
             got = cluster.execute(TPCH_QUERIES[qid]).rows
             launches = cluster.kernel_launches()
             kept = cluster.record_kernel_calls(str(tmp_path))
+            hash_dir = tmp_path / "hash"
+            hash_dir.mkdir(exist_ok=True)
+            hash_kept = cluster.record_kernel_calls(str(hash_dir),
+                                                    "hash_insert")
             assert got == local.execute(TPCH_QUERIES[qid]).rows, qid
             assert kept == {proc: n["segment_reduce"]
                             for proc, n in launches.items()}, (kept,
                                                               launches)
+            assert hash_kept == {proc: n["hash_insert"]
+                                 for proc, n in launches.items()}
             if qid == 1:
                 assert all(launches[f"worker-{i}"]["segment_reduce"] > 0
+                           and launches[f"worker-{i}"]["hash_insert"] > 0
                            for i in range(2)), launches
+            for proc in hash_kept:
+                for ops, valid, rounds in torch.load(
+                        hash_dir / f"{proc}.pt", map_location=dev,
+                        weights_only=True):
+                    got = kernels.hash_insert(ops, valid, rounds)
+                    want = kernels.hash_insert_reference(ops, valid, rounds)
+                    for g, w in zip(got, want):
+                        assert torch.equal(g, w), (proc, qid)
             # each worker's launches, replayed here against the plain
             # version on the inputs that worker gave the kernel
             for proc in kept:
@@ -773,3 +792,82 @@ def test_mesh_device_exchange_on_the_card_equals_the_cpu(dev):
     assert card_parts == cpu_parts
     assert card_stats == cpu_stats
     assert card_stats["splits"] == 1 and card_stats["split_ways"] == 4
+
+
+@pytest.mark.parametrize("case", sorted(HASH_CASES))
+def test_hash_kernel_matches_plain_version(dev, case):
+    """One launch per call, and rep, resolved and the rounds run equal to
+    the plain version's exactly (near-full tables overflow their budget
+    of one or two rounds)."""
+    n, distinct, null_share, rounds = HASH_CASES[case]
+    ops, valid = _hash_inputs(np.random.default_rng(n + len(distinct)), n,
+                              distinct, null_share, dev)
+    before = kernels.hash_insert.launches
+    got = kernels.hash_insert(ops, valid, rounds)
+    torch.cuda.synchronize()
+    assert kernels.hash_insert.launches == before + 1
+    want = kernels.hash_insert_reference(ops, valid, rounds)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w), case
+    if case.startswith("near_full"):
+        assert not bool(got[1].all())
+
+
+def test_hash_group_ids_on_the_card_equals_the_cpu(dev):
+    """``hash_group_ids`` over q1's grouping operands at micro: the card
+    (one kernel launch) gives the CPU path's gids, group rows, group count
+    and overflow flag, the two scalars as device tensors."""
+    from trino_tpu_torch.benchmarks import scan_q1_pages
+    from trino_tpu_torch.block import DevicePage, Page
+    from trino_tpu_torch.ops.hashtable import hash_group_ids
+    from trino_tpu_torch.ops.sortkeys import group_operands
+
+    pages = scan_q1_pages(TpchConnector(page_rows=4096), "micro", 1)
+    page = Page.concat(pages)
+    out = {}
+    for where in ("cpu", dev):
+        dp = DevicePage.from_page(page, device=where)
+        ops = []
+        for c in (0, 1):
+            ops += group_operands(dp.cols[c], dp.nulls[c], dp.types[c])
+        before = kernels.hash_insert.launches
+        out[str(where)] = hash_group_ids(ops, dp.valid)
+        assert kernels.hash_insert.launches == before + (where != "cpu")
+    (cg, crows, cn, cov), (gg, grows, gn, gov) = out.values()
+    assert gn.is_cuda and gov.is_cuda and gn.shape == gov.shape == ()
+    assert int(gn) == int(cn) == 4 and not bool(gov) and not bool(cov)
+    assert torch.equal(gg.cpu(), cg) and torch.equal(grows.cpu(), crows)
+
+
+def test_hash_library_call_refuses_a_cpu_tensor(dev):
+    """A CPU operand beside a CUDA mask (or the reverse) raises before
+    any launch; so does a float operand."""
+    valid = torch.ones(16, dtype=torch.bool, device=dev)
+    key = torch.arange(16, device=dev)
+    before = kernels.hash_insert.launches
+    with pytest.raises(ValueError, match="one CUDA device"):
+        kernels.hash_insert([key.cpu()], valid, 32)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        kernels.hash_insert([key], valid.cpu(), 32)
+    with pytest.raises(TypeError):
+        kernels.hash_insert([key.double()], valid, 32)
+    assert kernels.hash_insert.launches == before
+
+
+def test_hash_kernel_takes_its_most_operands_and_refuses_more(dev):
+    """Every descriptor travels in the launch parameters: the most
+    operands the kernel takes give the plain version's result; one more
+    raises before any launch."""
+    rng = np.random.default_rng(7)
+    n = 4096
+    valid = torch.ones(n, dtype=torch.bool, device=dev)
+    ops = [torch.from_numpy(rng.integers(0, 2, n)).to(dev)
+           for _ in range(kernels.HASH_MAX_OPERANDS)]
+    got = kernels.hash_insert(ops, valid, 32)
+    want = kernels.hash_insert_reference(ops, valid, 32)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    before = kernels.hash_insert.launches
+    with pytest.raises(ValueError, match="at most"):
+        kernels.hash_insert(ops + ops[:1], valid, 32)
+    assert kernels.hash_insert.launches == before

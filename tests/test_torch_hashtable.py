@@ -1,11 +1,13 @@
 """The torch engine's hash grouping against the JAX engine's.
 
 ``trino_tpu_torch.ops.hashtable`` ports ``trino_tpu.ops.hashtable``: the
-splitmix64 mix runs on int64 lanes instead of uint64, the probe loop is a
-Python loop instead of ``lax.while_loop``. Gids are dense, numbered in
-first-occurrence order, so they must EQUAL the JAX gids lane for lane —
-as must ``group_rows``, ``ngroups``, the overflow flag and the reduced
-states of ``hash_segment_reduce`` (integer states, so exactly).
+splitmix64 mix runs on int64 lanes instead of uint64, and the probe loop
+(``lax.while_loop`` there) is a kernel on the card and its plain version,
+a Python loop, on the CPU. Gids are dense, numbered in first-occurrence
+order, so they must EQUAL the JAX gids lane for lane — as must
+``group_rows``, ``ngroups``, the overflow flag (both 0-d tensors in both
+engines) and the reduced states of ``hash_segment_reduce`` (integer
+states, so exactly).
 """
 
 import numpy as np
@@ -21,6 +23,7 @@ from trino_tpu.ops.sortkeys import group_operands as j_group_operands
 from trino_tpu_torch import types as PT
 from trino_tpu_torch.block import Dictionary as PDictionary
 from trino_tpu_torch.ops import hashtable as pht
+from trino_tpu_torch.ops import kernels as pkernels
 from trino_tpu_torch.ops.sortkeys import group_operands as p_group_operands
 
 torch.set_num_threads(2)
@@ -64,7 +67,8 @@ def test_gids_equal_jax(cap, n, nvals, with_nulls):
     keys, nulls, valid = _keys(rng, cap, n, nvals, with_nulls)
     (jg, jrows, jng, jov), (pg, prows, png, pov) = _both_gids(keys, nulls,
                                                               valid)
-    assert not bool(jov) and not pov
+    assert not bool(jov) and not bool(pov)
+    png = int(png)
     assert png == int(jng)
     np.testing.assert_array_equal(pg.numpy(), np.asarray(jg))
     np.testing.assert_array_equal(prows.numpy()[:png],
@@ -81,9 +85,9 @@ def test_probe_budget_overflow_equal_jax(exact):
     valid = np.ones(cap, bool)
     (jg, _jr, jng, jov), (pg, _pr, png, pov) = _both_gids(
         keys, nulls, valid, rounds=1, exact=exact)
-    assert pov == bool(jov) == exact
+    assert bool(pov) == bool(jov) == exact
     if not exact:
-        assert png == int(jng)
+        assert int(png) == int(jng)
         np.testing.assert_array_equal(pg.numpy(), np.asarray(jg))
 
 
@@ -92,15 +96,41 @@ def test_global_aggregation_is_one_group():
     valid = np.arange(cap) < 20
     jg, jrows, jng, _ = jht.hash_group_ids((), jnp.asarray(valid))
     pg, prows, png, _ = pht.hash_group_ids([], torch.from_numpy(valid))
-    assert png == int(jng) == 1
+    assert int(png) == int(jng) == 1
     np.testing.assert_array_equal(pg.numpy(), np.asarray(jg))
+
+
+@pytest.mark.parametrize("rounds", [1, 2])
+@pytest.mark.parametrize("exact", [True, False])
+def test_probe_budget_near_full_table_equal_jax(rounds, exact):
+    """A near-full table (every row its own key, load factor 1/2) under a
+    budget of one or two rounds, where rows overflow: the gids, the
+    group rows, the group count and the overflow flag equal the JAX
+    engine's in both modes — in the partial mode the unresolved rows
+    single out identically — and both results are device scalars."""
+    rng = np.random.default_rng(100 * rounds + exact)
+    cap = 4096
+    keys = [rng.permutation(cap).astype(np.int64) * 1_000_003 - 7,
+            rng.integers(0, 3, cap).astype(np.int64)]
+    nulls = [np.zeros(cap, bool), rng.random(cap) < 0.1]
+    valid = np.arange(cap) < cap - 5
+    (jg, jrows, jng, jov), (pg, prows, png, pov) = _both_gids(
+        keys, nulls, valid, rounds=rounds, exact=exact)
+    assert pov.shape == png.shape == ()
+    assert pov.dtype == torch.bool and png.dtype == torch.int32
+    assert bool(pov) == bool(jov)
+    assert bool(jov) == exact   # the budget is too small for this page
+    np.testing.assert_array_equal(pg.numpy(), np.asarray(jg))
+    assert int(png) == int(jng)
+    np.testing.assert_array_equal(prows.numpy()[:int(png)],
+                                  np.asarray(jrows)[:int(jng)])
 
 
 def test_splitmix_bits_equal_jax():
     rng = np.random.default_rng(3)
     x = rng.integers(-2 ** 63, 2 ** 63 - 1, 64, dtype=np.int64)
     want = np.asarray(jht.splitmix64(jnp.asarray(x.view(np.uint64))))
-    got = pht.splitmix64(torch.from_numpy(x)).numpy()
+    got = pkernels.splitmix64(torch.from_numpy(x)).numpy()
     np.testing.assert_array_equal(got.view(np.uint64), want)
 
 

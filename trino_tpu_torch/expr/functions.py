@@ -1269,7 +1269,7 @@ def _hash_u64_dev(raw, t):
     """Device value hash: the JAX engine's uint64 splitmix64 over the
     value's bits, held as int64. Floats hash their bit pattern (``+0.0``
     folds -0.0 in); a REAL hashes its 32 bits zero-extended."""
-    from ..ops.hashtable import splitmix64
+    from ..ops.kernels import splitmix64
 
     if t in (T.DOUBLE, T.REAL):
         x = raw + 0.0
@@ -1327,7 +1327,7 @@ def _bit_length(v):
 
 
 def _hll_rho_kernel(raws, arg_types, ret_type):
-    from ..ops.hashtable import _shr
+    from ..ops.kernels import _shr
 
     rest = _shr(_hash_u64_dev(raws[0], arg_types[0]), HLL_BITS)  # 53 bits
     return 53 - _bit_length(rest) + 1

@@ -58,8 +58,8 @@ from .. import types as T
 from ..block import DevicePage, Dictionary, padded_size, storage_dtype
 from ..types import TypeError_
 from .hashtable import hash_group_ids, hash_segment_reduce, \
-    hashable_key_types, mix_operands, umod
-from .kernels import segment_reduce_columns
+    hashable_key_types, umod
+from .kernels import mix_operands, segment_reduce_columns
 from ..telemetry.profiler import instrument
 from .operator import Operator
 from .sortkeys import group_operands, lexsort_indices
@@ -700,17 +700,23 @@ class HashAggregationOperator(Operator):
         exact = self.step != "partial"
         gid, group_rows, ngroups, overflow = hash_group_ids(
             key_ops, page.valid, exact=exact)
-        if overflow:
-            return None
-        if not exact and observe and self.adaptive_partial \
+        key_nulls = tuple(page.nulls[c] for c in key_channels)
+        # dispatch the reduce before the one host read of the page (the
+        # overflow flag), as the JAX engine does: the device works while
+        # the host waits, and an overflowed page (astronomically rare)
+        # wastes one reduce
+        result = hash_segment_reduce(gid, group_rows, ngroups,
+                                     tuple(key_raws), key_nulls,
+                                     tuple(state_cols), self._kinds)
+        if exact:
+            if bool(overflow):  # qlint: ignore[recompile] the caller branches on it to fall back: the JAX engine reads it on the host too (trino_tpu/ops/aggregation.py:779)
+                return None
+        elif observe and self.adaptive_partial \
                 and not self._adaptive_decided:
             self._observe_reduction(key_ops, page.valid, group_rows,
                                     ngroups)
-        key_nulls = tuple(page.nulls[c] for c in key_channels)
         self.path_counts["hash"] += 1
-        return hash_segment_reduce(gid, group_rows, ngroups,
-                                   tuple(key_raws), key_nulls,
-                                   tuple(state_cols), self._kinds)
+        return result
 
     def _states_rank_to_code(self, state_cols: List) -> List:
         """String min/max value states: lexicographic RANK -> the

@@ -36,7 +36,7 @@ a list of one slab and needs nothing from the exchange.
 
 uint64 on int64 lanes: keys are int64 tensors holding the JAX engine's
 uint64 bits. Wrapping ``+`` and ``*`` give the same bits, a logical
-right shift is an arithmetic shift plus a mask (``hashtable._shr``), and
+right shift is an arithmetic shift plus a mask (``kernels._shr``), and
 the claim's MIN runs on the key with bit 63 flipped, which orders as the
 uint64 does. ``EMPTY`` (all ones, int64 -1) flips to the int64 maximum,
 so it stays the largest key and the value of a free slot. Scatters of
@@ -51,7 +51,7 @@ from typing import List, Sequence, Tuple
 import torch
 
 from ..telemetry.profiler import instrument
-from .hashtable import _i64, _shr, splitmix64
+from .kernels import _i64, _shr, splitmix64
 
 #: empty-slot sentinel, the uint64 all-ones as its int64 bits: packed
 #: keys reserve it by construction (``pack_keys`` biases every operand

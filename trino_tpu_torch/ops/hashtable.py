@@ -12,19 +12,20 @@ Design (the JAX engine's, ``trino_tpu/ops/hashtable.py``):
     <= 0.5) storing the REPRESENTATIVE ROW INDEX of the group that owns
     each slot (``capacity`` = empty sentinel), plus one dummy slot that
     absorbs masked scatters;
-  - insert-or-lookup runs linear-probe ROUNDS (a Python loop, up to
-    ``PROBE_ROUNDS``), each fully vectorized over the page: every
-    unresolved row probes ``(h + round) & mask``, empty slots are claimed
-    by scatter-min on row index, claimants re-gather the installed owner
-    and compare full keys — equal keys join the owner's group, colliders
-    advance to the next probe;
+  - insert-or-lookup runs linear-probe ROUNDS, up to ``PROBE_ROUNDS``:
+    every unresolved row probes ``(h + round) & mask``, empty slots go
+    to the smallest probing row index, claimants re-read the installed
+    owner and compare full keys — equal keys join the owner's group,
+    colliders advance to the next probe. On a CUDA page one launch of the
+    hand-written kernel (``kernels.hash_insert``, csrc/hash_insert.cu)
+    runs every round on the device, as the JAX engine's
+    ``jax.lax.while_loop`` does; on the CPU its plain version loops;
   - dense group ids are a cumsum over "row owns itself" leaders, so gid
     order is first-occurrence order, with no sort anywhere. They equal
     the JAX engine's gids exactly.
 
-The hash runs on int64 lanes: multiplication and addition wrap like the
-JAX engine's uint64, and a logical right shift is the arithmetic shift
-masked to the bits that remain.
+The group count and the overflow flag stay device scalars, as in the JAX
+engine: grouping a page reads nothing on the host.
 
 Float keys are NOT hashed here (the JAX engine's TPU restriction, kept
 so both engines take the same path); ``hashable_key_types`` is the gate.
@@ -38,6 +39,7 @@ import torch
 
 from .. import types as T
 from ..telemetry.profiler import instrument
+from . import kernels
 from .kernels import segment_reduce_columns
 
 #: linear-probe rounds per page: with load factor <= 0.5 and a 64-bit
@@ -46,25 +48,10 @@ from .kernels import segment_reduce_columns
 PROBE_ROUNDS = 32
 
 
-def _i64(u: int) -> int:
-    """A uint64 constant as the int64 with the same bits."""
-    return u - (1 << 64) if u >= 1 << 63 else u
-
-
-_M1 = _i64(0xBF58476D1CE4E5B9)
-_M2 = _i64(0x94D049BB133111EB)
-_M3 = _i64(0x9E3779B97F4A7C15)  # golden-ratio increment
-
-
 def hashable_key_types(key_types: Sequence[T.Type]) -> bool:
     """True when every grouping key can take the hash path (integer
     operands only — floats keep the sort path, see module docstring)."""
     return all(t not in (T.DOUBLE, T.REAL) for t in key_types)
-
-
-def _shr(x: torch.Tensor, k: int) -> torch.Tensor:
-    """Logical right shift of int64 lanes read as uint64."""
-    return (x >> k) & ((1 << (64 - k)) - 1)
 
 
 def umod(x: torch.Tensor, m: int) -> torch.Tensor:
@@ -76,24 +63,6 @@ def umod(x: torch.Tensor, m: int) -> torch.Tensor:
     return torch.where(x < 0, torch.remainder(r + (1 << 64) % m, m), r)
 
 
-def splitmix64(x: torch.Tensor) -> torch.Tensor:
-    """The splitmix64 finalizer over int64 lanes holding uint64 bits."""
-    x = x + _M3
-    x = (x ^ _shr(x, 30)) * _M1
-    x = (x ^ _shr(x, 27)) * _M2
-    return x ^ _shr(x, 31)
-
-
-def mix_operands(key_ops: Sequence[torch.Tensor], n: int, device
-                 ) -> torch.Tensor:
-    """Combine the flattened (tag, key) operand columns into one 64-bit
-    hash per row. Zero key columns (global aggregation) hash to 0."""
-    h = torch.zeros((n,), dtype=torch.int64, device=device)
-    for op in key_ops:
-        h = splitmix64(h ^ op.to(torch.int64))
-    return h
-
-
 def hash_insert(key_ops: Sequence[torch.Tensor], valid: torch.Tensor,
                 rounds: int = PROBE_ROUNDS):
     """The linear-probe rounds of one vectorized insert-or-lookup.
@@ -102,47 +71,9 @@ def hash_insert(key_ops: Sequence[torch.Tensor], valid: torch.Tensor,
     (owning) row of each valid row's group — ``cap`` for a row that
     exhausted its probe budget, the row itself for an invalid lane —
     and ``resolved`` marks the rows whose group is known (invalid lanes
-    count as resolved)."""
-    device = valid.device
-    cap = valid.shape[0]
-    # 2x capacity rounded up to a power of two (pages are pow2-padded
-    # already; defend against odd capacities so the & mask stays sound)
-    tsize = 1 << max(2 * cap - 1, 1).bit_length()
-    row_idx = torch.arange(cap, dtype=torch.int32, device=device)
-    slot0 = mix_operands(key_ops, cap, device) & (tsize - 1)
-
-    # slot -> owning row index; ``cap`` = empty; slot ``tsize`` is the
-    # dummy that absorbs scatters from masked-off lanes
-    table = torch.full((tsize + 1,), cap, dtype=torch.int32, device=device)
-    rep = torch.where(valid, cap, row_idx)  # resolved rows' owner row
-    resolved = ~valid
-    dummy = torch.tensor(tsize, dtype=torch.int64, device=device)
-
-    # typical pages resolve in 1-3 rounds; the loop exits as soon as
-    # every row found its group, paying the full budget only under
-    # adversarial collision chains (one host sync per round)
-    for r in range(rounds):
-        active = ~resolved
-        if not bool(active.any()):
-            break
-        slot = torch.where(active, (slot0 + r) & (tsize - 1), dummy)
-        owner = table[slot]
-        empty = active & (owner == cap)
-        # claim empty slots: smallest probing row index wins the install
-        claim = torch.full((tsize + 1,), cap, dtype=torch.int32,
-                           device=device)
-        claim.scatter_reduce_(0, torch.where(empty, slot, dummy), row_idx,
-                              "amin", include_self=True)
-        winner = empty & (claim[slot] == row_idx)
-        table.index_put_((torch.where(winner, slot, dummy),), row_idx)
-        owner = table[slot]
-        # full-key compare against the (possibly just-installed) owner
-        owner_safe = torch.clamp(owner, 0, cap - 1).to(torch.int64)
-        eq = active & (owner < cap)
-        for op in key_ops:
-            eq = eq & (op == op[owner_safe])
-        rep = torch.where(eq, owner, rep)
-        resolved = resolved | eq
+    count as resolved). One kernel launch on a CUDA page
+    (``kernels.hash_insert``)."""
+    rep, resolved, _taken = kernels.hash_insert(key_ops, valid, rounds)
     return rep, resolved
 
 
@@ -157,12 +88,13 @@ def hash_group_ids(key_ops: Sequence[torch.Tensor], valid: torch.Tensor,
       gid        int32 (cap,)   dense group id per row, first-occurrence
                                 order; invalid lanes get ``cap``
       group_rows int32 (cap,)   representative row index per group id
-      ngroups    int            number of groups assigned
-      overflow   bool           exact mode only: some row exhausted its
+      ngroups    int32 scalar   number of groups assigned (0-d tensor)
+      overflow   bool scalar    exact mode only: some row exhausted its
                                 probe budget and NO gid is trustworthy
                                 (caller must fall back). In non-exact
                                 mode always False: unresolved rows become
-                                their own singleton groups.
+                                their own singleton groups. A 0-d tensor
+                                on the page's device.
     """
     device = valid.device
     cap = valid.shape[0]
@@ -171,26 +103,25 @@ def hash_group_ids(key_ops: Sequence[torch.Tensor], valid: torch.Tensor,
 
     unresolved = ~resolved
     if exact:
-        overflow = bool(unresolved.any())  # qlint: ignore[recompile] the caller branches on it to fall back: the JAX engine reads it on the host too (trino_tpu/ops/aggregation.py:779)
+        overflow = unresolved.any()
     else:
         # partial aggregation tolerates duplicate groups: unresolved
         # rows lead their own singleton group
         rep = torch.where(unresolved, row_idx, rep)
-        overflow = False
+        overflow = torch.zeros((), dtype=torch.bool, device=device)
 
     leader = valid & (rep == row_idx)
     prefix = torch.cumsum(leader.to(torch.int32), 0, dtype=torch.int32) - 1
     rep_safe = torch.clamp(rep, 0, cap - 1).to(torch.int64)
-    gid = torch.where(valid & (rep < cap), prefix[rep_safe],
-                      torch.tensor(cap, dtype=torch.int32, device=device))
-    ngroups = int(leader.sum())
+    gid = torch.where(valid & (rep < cap), prefix[rep_safe], cap)
+    ngroups = leader.sum(dtype=torch.int32)
     group_rows = torch.zeros((cap + 1,), dtype=torch.int32, device=device)
     group_rows.index_put_(
         (torch.where(leader, prefix, cap).to(torch.int64),), row_idx)
     return gid, group_rows[:cap], ngroups, overflow
 
 
-def hash_segment_reduce(gid, group_rows, ngroups: int, key_raws: Tuple,
+def hash_segment_reduce(gid, group_rows, ngroups, key_raws: Tuple,
                         key_nulls: Tuple, state_cols: Tuple, kinds: Tuple):
     """Reduce state columns by hash-assigned gid and gather group keys.
 

@@ -54,7 +54,7 @@ from .. import types as T
 from ..block import (DevicePage, Dictionary, padded_size, storage_dtype,
                      unify_dictionaries)
 from ..telemetry.profiler import instrument
-from .hashtable import _i64, _shr
+from .kernels import _i64, _shr
 from .operator import Operator
 from .sort import _pad
 from .sortkeys import group_operands

@@ -39,22 +39,26 @@ from ..telemetry.profiler import instrument
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCE = "segment_reduce.cu"
+#: every kernel source, one library each
+SEGMENT_SOURCE = "segment_reduce.cu"
+HASH_SOURCE = "hash_insert.cu"
+SOURCES = (SEGMENT_SOURCE, HASH_SOURCE)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 _lib: Optional[ctypes.CDLL] = None
-#: wall ms of the library's build (when this process built it) and load;
-#: charged once per process to the kernel's first profiler entry
-_load_ms = 0.0
-_load_ms_charged = False
+_hash_lib: Optional[ctypes.CDLL] = None
+#: wall ms of each library's build (when this process built it) and load,
+#: by source; charged once per process to its kernel's first profiler entry
+_load_ms = {}
+_load_ms_charged = set()
 _build_lock = threading.Lock()
 #: guards the launch counters: a server runs statements on several
 #: threads, and ``launches += 1`` is not atomic under threads
 _count_lock = threading.Lock()
-#: while a list: a copy of the inputs of every call that launches the
-#: kernel, in launch order (``record_calls``)
-_recorded: Optional[list] = None
+#: per kernel, while a list: a copy of the inputs of every call that
+#: launches it, in launch order (``record_calls``)
+_recorded = {"segment_reduce": None, "hash_insert": None}
 
 
 def _nvcc() -> str:
@@ -76,65 +80,114 @@ def _library_path(source: str) -> str:
     return os.path.join(BUILD_DIR, f"lib{stem}-{digest.hexdigest()[:16]}.so")
 
 
-def build() -> str:
-    """Compile ``csrc/segment_reduce.cu`` unless its library exists;
-    returns the library's path. Raises with the compiler's output if the
-    build fails."""
-    path = _library_path(SOURCE)
-    if os.path.exists(path):
-        return path
+def build() -> List[str]:
+    """Compile every source of ``SOURCES`` whose library does not exist,
+    one ``nvcc`` per source, all started together; returns the
+    libraries' paths in the order of ``SOURCES``. Raises with the
+    compiler's output if a build fails."""
+    paths = [_library_path(source) for source in SOURCES]
+    todo = [(source, path) for source, path in zip(SOURCES, paths)
+            if not os.path.exists(path)]
+    if not todo:
+        return paths
     nvcc = _nvcc()
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.tmp"
-    done = subprocess.run(
-        [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, SOURCE)],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
-    if done.returncode != 0:
-        raise RuntimeError(f"kernel build failed: nvcc exited "
-                           f"{done.returncode}\n"
-                           f"{done.stdout.decode(errors='replace')}")
-    os.replace(tmp, path)  # atomic: readers never see half a file
-    return path
+    running = []
+    for source, path in todo:
+        tmp = f"{path}.{os.getpid()}.tmp"
+        running.append((source, path, tmp, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, source)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
+    failed = []
+    for source, path, tmp, proc in running:
+        out = proc.communicate()[0].decode(errors="replace")
+        if proc.returncode != 0:
+            failed.append(f"{source}: nvcc exited {proc.returncode}\n{out}")
+        else:
+            os.replace(tmp, path)  # atomic: readers never see half a file
+    if failed:
+        raise RuntimeError("kernel build failed: " + "\n".join(failed))
+    return paths
+
+
+def _open(source: str) -> ctypes.CDLL:
+    """Build (if need be) and load the library of ``source``, keeping the
+    wall it took. Call under the build lock."""
+    t0 = time.perf_counter()
+    lib = ctypes.CDLL(build()[SOURCES.index(source)])
+    _load_ms[source] = (time.perf_counter() - t0) * 1e3
+    return lib
+
+
+def _check_constants(lib, kernel: str, names, want) -> None:
+    """Raises unless the library's compile-time constants ``names`` (C
+    functions of no argument) are the values the wrapper was written
+    for."""
+    for name in names:
+        getattr(lib, name).argtypes = []
+        getattr(lib, name).restype = ctypes.c_int
+    got = tuple(getattr(lib, name)() for name in names)
+    if got != want:
+        raise RuntimeError(f"{kernel} library: {', '.join(names)} = {got}, "
+                           f"the wrapper expects {want}")
 
 
 def _library() -> ctypes.CDLL:
-    global _lib, _load_ms
+    global _lib
     with _build_lock:
         if _lib is None:
-            t0 = time.perf_counter()
-            lib = ctypes.CDLL(build())
+            lib = _open(SEGMENT_SOURCE)
             vp = ctypes.c_void_p
             lib.segment_reduce_columns.argtypes = [
                 ctypes.c_char_p, ctypes.c_int, vp, vp, ctypes.c_longlong,
                 ctypes.c_longlong, vp, vp, vp, vp]
             lib.segment_reduce_columns.restype = ctypes.c_int
-            for name in ("segment_reduce_tile_rows",
-                         "segment_reduce_inline_columns"):
-                getattr(lib, name).argtypes = []
-                getattr(lib, name).restype = ctypes.c_int
             lib.segment_reduce_error_string.argtypes = [ctypes.c_int]
             lib.segment_reduce_error_string.restype = ctypes.c_char_p
-            got = (lib.segment_reduce_tile_rows(),
-                   lib.segment_reduce_inline_columns())
-            if got != (TILE_ROWS, INLINE_COLUMNS):
-                raise RuntimeError(
-                    f"segment_reduce library: tile rows and inline columns "
-                    f"{got}, the wrapper expects "
-                    f"{(TILE_ROWS, INLINE_COLUMNS)}")
-            _load_ms = (time.perf_counter() - t0) * 1e3
+            _check_constants(lib, "segment_reduce",
+                             ("segment_reduce_tile_rows",
+                              "segment_reduce_inline_columns"),
+                             (TILE_ROWS, INLINE_COLUMNS))
             _lib = lib
         return _lib
 
 
-def _charge_load_ms() -> float:
-    """The library's build + load wall, the first time it is asked for
-    after the library loaded (once per process), else 0."""
-    global _load_ms_charged
+def _hash_library() -> ctypes.CDLL:
+    global _hash_lib
     with _build_lock:
-        if _load_ms_charged or _lib is None:
+        if _hash_lib is None:
+            lib = _open(HASH_SOURCE)
+            vp = ctypes.c_void_p
+            lib.hash_insert.argtypes = [
+                ctypes.c_char_p, ctypes.c_int, vp, ctypes.c_longlong,
+                ctypes.c_int, vp, vp, vp, ctypes.c_longlong, vp, vp]
+            lib.hash_insert.restype = ctypes.c_int
+            lib.hash_insert_error_string.argtypes = [ctypes.c_int]
+            lib.hash_insert_error_string.restype = ctypes.c_char_p
+            _check_constants(lib, "hash_insert",
+                             ("hash_insert_max_operands",
+                              "hash_insert_max_grid"),
+                             (HASH_MAX_OPERANDS, HASH_MAX_GRID))
+            _hash_lib = lib
+        return _hash_lib
+
+
+def _charge(source: str) -> float:
+    """The build + load wall of ``source``'s library, the first time it is
+    asked for after the library loaded (once per process), else 0."""
+    with _build_lock:
+        if source in _load_ms_charged or source not in _load_ms:
             return 0.0
-        _load_ms_charged = True
-        return _load_ms
+        _load_ms_charged.add(source)
+        return _load_ms[source]
+
+
+def _charge_load_ms() -> float:
+    return _charge(SEGMENT_SOURCE)
+
+
+def _charge_hash_load_ms() -> float:
+    return _charge(HASH_SOURCE)
 
 
 # ---------------------------------------------------------------------------
@@ -365,12 +418,10 @@ def segment_reduce_columns(cols: Sequence[torch.Tensor], gid: torch.Tensor,
                         num_segments)
     if not cols:
         return []
-    if _recorded is not None:
-        entry = ([c.clone() for c in cols], gid.clone(), num_segments,
-                 list(kinds), None if order is None else order.clone())
-        with _count_lock:  # qlint: ignore[trace-purity] the recording's one append under the counters' lock, only while record_calls is on
-            if _recorded is not None:
-                _recorded.append(entry)
+    if _recorded["segment_reduce"] is not None:
+        _record("segment_reduce", (
+            [c.clone() for c in cols], gid.clone(), num_segments,
+            list(kinds), None if order is None else order.clone()))
     return _launch(cols, gid, num_segments, tuple(kinds), order, plan)
 
 
@@ -481,15 +532,259 @@ def segment_reduce(col: torch.Tensor, gid: torch.Tensor, num_segments: int,
 segment_reduce.launches = 0
 
 
-def record_calls(on: bool) -> list:
-    """Start (``on``) or stop keeping a copy of the inputs ``(cols, gid,
-    num_segments, kinds, order)`` of every ``segment_reduce_columns`` call
-    that launches the kernel; returns the calls kept since the start
-    (empty when starting). How a run's launches in a worker process are
-    held against the plain version after the run."""
-    global _recorded
+# ---------------------------------------------------------------------------
+# hash insert
+#
+# Replaces the probe loop of trino_tpu/ops/hashtable.py
+# `_hash_group_ids_impl` (:111-155), a jit `jax.lax.while_loop` (:153), not
+# a Pallas kernel: eager PyTorch has no device loop, and the same rounds as
+# a Python loop of PyTorch ops read the device once per round to decide
+# whether to go on. One cooperative launch of csrc/hash_insert.cu runs every
+# round on the device, in the reference's lockstep order (the smallest row
+# wins a contended slot), so its (rep, resolved) equal the plain version's
+# bit for bit. Bound on Hopper: memory — the key operands read twice, the
+# valid mask once, the table (2 * capacity rounded up to a power of two,
+# int32) written once, rep and resolved written once: at q1's page
+# (262,144 rows, four operands) 13.1 MB, 0.0039 ms at 3.35 TB/s; in
+# practice the call is bound by its grid barriers (see the source). The
+# wrapper's host work per call: the checks, three allocations (rep with
+# the rounds-run scalar, resolved, the scratch), one packed descriptor
+# table and the library call.
+
+
+def _i64(u: int) -> int:
+    """A uint64 constant as the int64 with the same bits."""
+    return u - (1 << 64) if u >= 1 << 63 else u
+
+
+_M1 = _i64(0xBF58476D1CE4E5B9)
+_M2 = _i64(0x94D049BB133111EB)
+_M3 = _i64(0x9E3779B97F4A7C15)  # golden-ratio increment
+#: the most operand descriptors a call takes, all passed in the launch
+#: parameters (csrc/hash_insert.cu ``kMaxOperands``: 120 key columns), and
+#: the most blocks of a call's grid (``kMaxGrid``); the library's own
+#: values are checked when it loads
+HASH_MAX_OPERANDS = 240
+HASH_MAX_GRID = 4096
+_OPERAND_CODE = {torch.bool: 0, torch.uint8: 0, torch.int8: 1,
+                 torch.int16: 2, torch.int32: 3, torch.int64: 4}
+
+
+def _shr(x: torch.Tensor, k: int) -> torch.Tensor:
+    """Logical right shift of int64 lanes read as uint64."""
+    return (x >> k) & ((1 << (64 - k)) - 1)
+
+
+def splitmix64(x: torch.Tensor) -> torch.Tensor:
+    """The splitmix64 finalizer over int64 lanes holding uint64 bits:
+    multiplication and addition wrap like uint64, and a logical right
+    shift is the arithmetic shift masked to the bits that remain."""
+    x = x + _M3
+    x = (x ^ _shr(x, 30)) * _M1
+    x = (x ^ _shr(x, 27)) * _M2
+    return x ^ _shr(x, 31)
+
+
+def mix_operands(key_ops: Sequence[torch.Tensor], n: int, device
+                 ) -> torch.Tensor:
+    """Combine the flattened (tag, key) operand columns into one 64-bit
+    hash per row. Zero key columns (global aggregation) hash to 0."""
+    h = torch.zeros((n,), dtype=torch.int64, device=device)
+    for op in key_ops:
+        h = splitmix64(h ^ op.to(torch.int64))
+    return h
+
+
+def table_size(cap: int) -> int:
+    """Slots of the hash table of a page of ``cap`` lanes: 2x capacity
+    rounded up to a power of two (pages are pow2-padded already; an odd
+    capacity still gets a sound ``& (size - 1)`` mask)."""
+    return 1 << max(2 * cap - 1, 1).bit_length()
+
+
+def hash_insert_reference(key_ops: Sequence[torch.Tensor],
+                          valid: torch.Tensor, rounds: int):
+    """Plain PyTorch version of ``hash_insert``: the rounds as a Python
+    loop, each fully vectorized over the page, reading the device once
+    per round to stop early."""
+    device = valid.device
+    cap = valid.shape[0]
+    tsize = table_size(cap)
+    row_idx = torch.arange(cap, dtype=torch.int32, device=device)
+    slot0 = mix_operands(key_ops, cap, device) & (tsize - 1)
+
+    # slot -> owning row index; ``cap`` = empty; slot ``tsize`` is the
+    # dummy that absorbs scatters from masked-off lanes
+    table = torch.full((tsize + 1,), cap, dtype=torch.int32, device=device)
+    rep = torch.where(valid, cap, row_idx)  # resolved rows' owner row
+    resolved = ~valid
+    dummy = torch.tensor(tsize, dtype=torch.int64, device=device)
+
+    # typical pages resolve in 1-3 rounds; the loop exits as soon as
+    # every row found its group, paying the full budget only under
+    # adversarial collision chains (one host read per round)
+    taken = 0
+    for r in range(rounds):
+        active = ~resolved
+        if not bool(active.any()):  # qlint: ignore[recompile] the plain version: a CUDA page runs the kernel, which reads nothing on the host
+            break
+        slot = torch.where(active, (slot0 + r) & (tsize - 1), dummy)
+        owner = table[slot]
+        empty = active & (owner == cap)
+        # claim empty slots: smallest probing row index wins the install
+        claim = torch.full((tsize + 1,), cap, dtype=torch.int32,
+                           device=device)
+        claim.scatter_reduce_(0, torch.where(empty, slot, dummy), row_idx,
+                              "amin", include_self=True)
+        winner = empty & (claim[slot] == row_idx)
+        table.index_put_((torch.where(winner, slot, dummy),), row_idx)
+        owner = table[slot]
+        # full-key compare against the (possibly just-installed) owner
+        owner_safe = torch.clamp(owner, 0, cap - 1).to(torch.int64)
+        eq = active & (owner < cap)
+        for op in key_ops:
+            eq = eq & (op == op[owner_safe])
+        rep = torch.where(eq, owner, rep)
+        resolved = resolved | eq
+        taken = r + 1
+    return rep, resolved, torch.tensor(taken, dtype=torch.int32,
+                                       device=device)
+
+
+def _check_hash(key_ops, valid, rounds: int) -> None:
+    """Raises on tensors the kernel does not take. Cheap tensor attributes
+    only: this runs on every call."""
+    d = valid.get_device()
+    if d < 0 or any(op.get_device() != d for op in key_ops):
+        raise ValueError(
+            "hash_insert: key operands on "
+            f"{sorted({str(op.device) for op in key_ops})}, valid on "
+            f"{valid.device}; all must be on one CUDA device (or all on "
+            "the CPU)")
+    if valid.dtype != torch.bool:
+        raise TypeError(f"hash_insert: valid must be bool, not {valid.dtype}")
+    shape = valid.shape
+    if len(shape) != 1 or not valid.is_contiguous():
+        raise ValueError("hash_insert: valid must be 1-D and contiguous")
+    if shape[0] >= 2 ** 31 - 1:
+        raise ValueError(f"hash_insert: {shape[0]} rows, more than int32 "
+                         "row indices hold")
+    for op in key_ops:
+        if op.dtype not in _OPERAND_CODE:
+            raise TypeError(f"hash_insert: key operand of dtype {op.dtype} "
+                            "(integer and bool operands only)")
+        if op.shape != shape or not op.is_contiguous():
+            raise ValueError(
+                f"hash_insert: key operand {tuple(op.shape)} and valid "
+                f"{tuple(shape)} must be 1-D, contiguous and of one length")
+    if not 0 <= rounds < 2 ** 31:
+        raise ValueError(f"hash_insert: rounds {rounds} out of range")
+    if len(key_ops) > HASH_MAX_OPERANDS:
+        raise ValueError(f"hash_insert: {len(key_ops)} key operands, the "
+                         f"kernel takes at most {HASH_MAX_OPERANDS}")
+
+
+def hash_insert(key_ops: Sequence[torch.Tensor], valid: torch.Tensor,
+                rounds: int):
+    """The linear-probe rounds of one vectorized insert-or-lookup of
+    every valid row's key (the integer or bool operand columns
+    ``key_ops``) into an open-addressing table of ``table_size(cap)``
+    slots, at most ``rounds`` rounds.
+
+    Returns (rep, resolved, taken): ``rep`` int32 (cap,) is the
+    representative (owning) row of each valid row's group — ``cap`` for a
+    row that exhausted its probe budget, the row itself for an invalid
+    lane; ``resolved`` marks the rows whose group is known (invalid lanes
+    count as resolved); ``taken`` is a 0-d int32 tensor, the rounds run.
+
+    CPU tensors take the plain version. CUDA tensors launch the Hopper
+    kernel once (one call of the library, counted in
+    ``hash_insert.launches``), which reads nothing on the host."""
+    key_ops = list(key_ops)
+    if not (valid.is_cuda or any(op.is_cuda for op in key_ops)):
+        return hash_insert_reference(key_ops, valid, rounds)
+    _check_hash(key_ops, valid, rounds)
+    if _recorded["hash_insert"] is not None:
+        _record("hash_insert", ([op.clone() for op in key_ops],
+                                valid.clone(), rounds))
+    if _hash_lib is None:  # qlint: ignore[cache-coherence] load-once handle: set once, under the build lock, before the first launch; no cached value depends on it
+        _hash_library()  # qlint: ignore[trace-purity] the kernel's load-once (see _launch)
+    n = valid.shape[0]
+    tsize = table_size(n)
+    k = len(key_ops)
+    device = valid.device
+    out = torch.empty(n + 1, dtype=torch.int32, device=device)
+    resolved = torch.empty(n, dtype=torch.bool, device=device)
+    scratch = torch.empty(tsize + n + HASH_MAX_GRID, dtype=torch.int32,
+                          device=device)
+    table = _operand_table(k).pack(*[v for op in key_ops for v in (
+        op.data_ptr(), _OPERAND_CODE[op.dtype])])
+    _run_hash(key_ops, valid, rounds, out, resolved, scratch, table)
+    return out[:n], resolved, out[n]
+
+
+@functools.lru_cache(maxsize=128)
+def _operand_table(k: int) -> struct.Struct:
+    return struct.Struct(f"<{2 * k}q")
+
+
+def _run_hash_signature(key_ops, valid, rounds, *_):
+    """The library call's program signature: the rows, the operands'
+    dtypes and the probe budget."""
+    return valid.shape[0], tuple(op.dtype for op in key_ops), rounds
+
+
+def _run_hash(key_ops, valid, rounds: int, out, resolved, scratch,
+              table: bytes) -> None:
+    """The library call: every probe round of one page into ``out`` (rep,
+    then the rounds run) and ``resolved``, on the current stream."""
+    n = valid.shape[0]
+    rc = _hash_lib.hash_insert(  # qlint: ignore[cache-coherence] load-once handle (see hash_insert)
+        table, len(key_ops), valid.data_ptr(), n, rounds, out.data_ptr(),
+        resolved.data_ptr(), out.data_ptr() + 4 * n, table_size(n),
+        scratch.data_ptr(), _current_stream(valid.get_device()))
+    if rc != 0:
+        msg = _hash_lib.hash_insert_error_string(rc).decode(errors="replace")  # qlint: ignore[cache-coherence] load-once handle (see hash_insert)
+        raise RuntimeError(f"hash_insert launch failed: CUDA error {rc} "
+                           f"({msg})")
+    with _count_lock:  # qlint: ignore[trace-purity] the launch counter a run reads to show its path went through the kernel: one update per launch, by design
+        hash_insert.launches += 1
+
+
+# the library call, profiled as the kernel's launch entry under a name of
+# its own (the JAX engine runs the probe loop inside its
+# ``hash_group_ids`` program, which the port's ``hash_group_ids`` entry
+# stands for, so the program's calls and the kernel's launches count
+# apart). Recorded on every launch, even inside that entry; its bytes are
+# the inputs, the outputs and the scratch (the table).
+_run_hash = instrument("hash_insert", _run_hash, kernel=True,
+                       compile_ms=_charge_hash_load_ms,
+                       signature=_run_hash_signature)
+
+#: calls of the hash kernel's library since the last reset, one per
+#: ``hash_insert`` call on the card (the CPU path never counts)
+hash_insert.launches = 0
+
+
+def _record(kernel: str, entry: tuple) -> None:
+    """Keep one launch's inputs while ``record_calls`` is on for
+    ``kernel``."""
+    with _count_lock:  # qlint: ignore[trace-purity] the recording's one append under the counters' lock, only while record_calls is on
+        kept = _recorded[kernel]
+        if kept is not None:
+            kept.append(entry)
+
+
+def record_calls(on: bool, kernel: str = "segment_reduce") -> list:
+    """Start (``on``) or stop keeping a copy of the inputs of every call
+    that launches ``kernel``: ``(cols, gid, num_segments, kinds, order)``
+    of a ``segment_reduce_columns`` call, ``(key_ops, valid, rounds)`` of
+    a ``hash_insert`` call. Returns the calls kept since the start (empty
+    when starting). How a run's launches in a worker process are held
+    against the plain version after the run."""
     with _count_lock:
-        kept, _recorded = _recorded or [], ([] if on else None)
+        kept = _recorded[kernel] or []
+        _recorded[kernel] = [] if on else None
     return kept
 
 
@@ -498,7 +793,9 @@ def launch_counts(reset: bool = False) -> dict:
     ``reset`` set back to 0) under the counters' lock: a worker process
     of the multi-process runtime reports its own launches through this."""
     with _count_lock:
-        out = {"segment_reduce": segment_reduce.launches}
+        out = {"segment_reduce": segment_reduce.launches,
+               "hash_insert": hash_insert.launches}
         if reset:
             segment_reduce.launches = 0
+            hash_insert.launches = 0
     return out

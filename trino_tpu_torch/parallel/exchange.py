@@ -20,7 +20,7 @@ destination. Rows beyond capacity are counted in the returned
 uint64 on int64 lanes: torch has no uint64 shift, remainder or
 comparison. Keys are int64 tensors holding the JAX engine's uint64
 bits; wrapping ``+`` and ``*`` give the same bits, a logical right
-shift is an arithmetic shift plus a mask (``ops/hashtable._shr``), and
+shift is an arithmetic shift plus a mask (``ops/kernels._shr``), and
 the partition id is the UNSIGNED remainder (an int64 ``%`` of a value
 with bit 63 set routes the row elsewhere, silently).
 
@@ -43,7 +43,8 @@ import torch
 
 from .. import types as T
 from ..expr.functions import _float_to_int64
-from ..ops.hashtable import _i64, _shr, umod
+from ..ops.hashtable import umod
+from ..ops.kernels import _i64, _shr
 
 
 def string_hash_lut(d) -> np.ndarray:

@@ -1278,19 +1278,21 @@ class ProcessQueryRunner:
             out[f"worker-{i}"] = resp["launches"]
         return out
 
-    def record_kernel_calls(self, directory: Optional[str] = None) -> dict:
+    def record_kernel_calls(self, directory: Optional[str] = None,
+                            kernel: str = "segment_reduce") -> dict:
         """Without ``directory``, every process starts keeping a copy of
-        the inputs of each kernel launch; with it, every process stops
-        and writes the calls it kept to ``<directory>/<process>.pt``
+        the inputs of each launch of ``kernel``; with it, every process
+        stops and writes the calls it kept to ``<directory>/<process>.pt``
         (torch.save, a list of ``(cols, gid, num_segments, kinds,
-        order)``). Returns ``{process: calls kept}``."""
+        order)``, or of ``(key_ops, valid, rounds)`` for
+        ``hash_insert``). Returns ``{process: calls kept}``."""
         from ..ops import kernels
 
         def path(name):
             return None if directory is None \
                 else os.path.join(directory, f"{name}.pt")
 
-        kept = kernels.record_calls(directory is None)
+        kept = kernels.record_calls(directory is None, kernel)
         if directory is not None:
             torch.save(kept, path("coordinator"))
         out = {"coordinator": len(kept)}
@@ -1298,7 +1300,8 @@ class ProcessQueryRunner:
             if not w.alive:
                 continue
             resp = w.rpc({"op": "kernel_calls", "record": directory is None,
-                          "path": path(f"worker-{i}")}, timeout=120)
+                          "path": path(f"worker-{i}"), "kernel": kernel},
+                         timeout=120)
             out[f"worker-{i}"] = resp["calls"]
         return out
 

@@ -59,8 +59,10 @@ Protocol (rpc.py framing; one request per connection):
                    kernel launch counters, zeroed after the read with
                    reset: a run's launches on the card are summed over
                    the processes)
-  kernel_calls    {record, path?}    -> {ok, calls} (with record, keep a
-                   copy of the inputs of every kernel launch from now on;
+  kernel_calls    {record, path?, kernel?}
+                                     -> {ok, calls} (with record, keep a
+                   copy of the inputs of every launch of ``kernel``
+                   (default segment_reduce, or hash_insert) from now on;
                    without, stop and write the calls kept to ``path``
                    with torch.save, so another process replays them
                    against the plain version)
@@ -307,7 +309,9 @@ class WorkerServer:
         elif op == "kernel_calls":
             from ..ops import kernels
 
-            kept = kernels.record_calls(bool(req.get("record")))
+            kept = kernels.record_calls(
+                bool(req.get("record")),
+                req.get("kernel", "segment_reduce"))
             if req.get("path"):
                 import torch
 
