@@ -38,17 +38,22 @@ Phases, one JSON line each on standard output:
              and at the 8,192-lane call the wrapper's host us per step
              (``wrapper_steps``);
    hash_kernel — the hash table's probe kernel (``kernels.hash_insert``,
-             every probe round in one cooperative launch) against its
-             plain version on the card, exactly (rep, resolved and the
-             rounds run), at q1's page shape (262,144 lanes, 4 groups), a
+             every probe round in one cooperative launch, under the plan
+             ``hash_plan`` makes) against its plain version on the card,
+             exactly (rep, resolved and the rounds run; the barriers run
+             are the design's, at most rounds + 1), at every input of
+             ``HASH_CASES``: q1's page shape (262,144 lanes, 4 groups), a
              page of ~n/7 groups, the largest cap the main path gives
              (16,777,216 lanes), a ragged cap, zero key columns (a global
-             aggregation), nulls in the keys, and a near-full table under
-             one and under two rounds, where rows overflow; each timed back
-             to back, alone on the device (torch.profiler), once after an
-             idle card, beside its bytes bound and the plain version (no
-             single PyTorch call computes first-occurrence group ids: no
-             library time);
+             aggregation), nulls in the keys, a near-full table under one
+             and under two rounds, where rows overflow, small pages of
+             512 to 16,385 lanes, an 8,192-lane merge, a 1,048,576-lane
+             page of 22 rounds and 64-bit table entries; each timed back
+             to back, alone on the device (torch.profiler: every device
+             op of a call, the memset included), once after an idle
+             card, beside its bytes bound (the live rows' keys) and the
+             plain version (no single PyTorch call computes
+             first-occurrence group ids: no library time);
 5. q1_sf1  — TPC-H q1 at SF1 through ``trino_tpu_torch.LocalQueryRunner``
              on the card, held against the oracle answer in
              ``tests/sf1_expected.py``; every kernel launch counter is set
@@ -57,9 +62,13 @@ Phases, one JSON line each on standard output:
              aggregated page, the hash kernel once per hash-grouped page;
              the cold run keeps the inputs of every hash kernel launch;
    q1_hash, q3_hash, q18_hash — those launches (of q1's, q3's and q18's
-             cold runs) replayed against the plain version, exactly; the
-             call with the most lanes (the merge) and the page call with
-             the most live rows timed as in hash_kernel;
+             cold runs) replayed against the plain version, exactly, each
+             with its grid, entry width and barriers run; the call with
+             the most lanes (the merge) and the page call with the most
+             live rows timed as in hash_kernel (and written, when
+             HASH_CALLS_DIR names a directory, for
+             ``scripts/hash_group_ab.py --kernel``), as every ``*_hash``
+             phase below does;
 6. q3_sf1  — TPC-H q3 at SF1 the same way: two hash joins (build sides
              orders and customer), the dynamic filters their builds put
              on the lineitem and orders scans, the aggregation over the
@@ -796,9 +805,12 @@ def columns_phase():
 #: values per key column (None: every row its own key), null share, probe
 #: rounds). q1's page (two keys of 3 and 2 values), a page of ~n/7 groups,
 #: the largest cap the main path gives (q18's merge), a ragged cap, a
-#: global aggregation, nulls in the keys, and a near-full table (load
-#: factor 1/2, every row its own key) under one and two rounds, where rows
-#: overflow
+#: global aggregation, nulls in the keys, a near-full table (load factor
+#: 1/2, every row its own key) under one and two rounds, where rows
+#: overflow; small pages of one and two tiles (512 and 513 lanes) and of
+#: 16,384 and 16,385 lanes, the process cluster's q3 merge (8,192 lanes)
+#: and its q18 merge (1,048,576 lanes, ~740,000 groups, 22 rounds), and a
+#: budget that takes 64-bit table entries
 HASH_CASES = {
     "q1_page": (PAGE_ROWS, [3, 2], 0.0, 32),
     "many_groups": (PAGE_ROWS, [PAGE_ROWS // 7], 0.0, 32),
@@ -808,7 +820,24 @@ HASH_CASES = {
     "nulls": (PAGE_ROWS, [50, 40], 0.3, 32),
     "near_full_1_round": (PAGE_ROWS, [None], 0.0, 1),
     "near_full_2_rounds": (PAGE_ROWS, [None], 0.0, 2),
+    "page_512": (512, [80], 0.0, 32),
+    "page_513": (513, [80], 0.0, 32),
+    "page_16384": (16_384, [16_384 // 7], 0.0, 32),
+    "page_16385": (16_385, [16_385 // 7], 0.0, 32),
+    "merge_8192": (8_192, [1_400], 0.0, 32),
+    "many_rounds": (1_048_576, [1_600_000], 0.0, 32),
+    "wide_entries": (PAGE_ROWS, [PAGE_ROWS // 7], 0.0, 1 << 14),
 }
+
+
+def hash_case_rng(case: str):
+    """The generator of one ``HASH_CASES`` input: seeded by its name, so
+    an input is the same whichever cases run before it."""
+    import zlib
+
+    import numpy as np
+
+    return np.random.default_rng(zlib.crc32(case.encode()))
 
 
 def _hash_inputs(rng, n: int, distinct, null_share: float, dev):
@@ -829,16 +858,28 @@ def _hash_inputs(rng, n: int, distinct, null_share: float, dev):
     return ops, valid
 
 
+def hash_barriers(taken: int, rounds: int) -> int:
+    """The grid barriers a hash kernel call runs (csrc/hash_insert.cu):
+    one after each phase but the last of a call that spends its budget,
+    so never more than ``rounds + 1``."""
+    if rounds == 0:
+        return 0
+    return taken + 1 if taken < rounds else rounds
+
+
 def _hash_check(key_ops, valid, rounds: int, what: str) -> dict:
     """The kernel against its plain version on one call's inputs, exactly:
-    rep, resolved and the rounds run. Returns the call's shape (rows,
-    live rows, operands, groups, rounds run, unresolved rows) and the
-    largest difference (0)."""
+    rep, resolved and the rounds run; the barriers the call ran are the
+    design's (``hash_barriers``). Returns the call's shape (rows, live
+    rows, operands, groups, rounds run, unresolved rows, the plan's entry
+    width, blocks and worklist spill, the barriers run) and the largest
+    difference (0)."""
     import torch
 
     from trino_tpu_torch.ops import kernels
 
-    rep, resolved, taken = kernels.hash_insert(key_ops, valid, rounds)
+    run = kernels.hash_insert_run(key_ops, valid, rounds)
+    rep, resolved, taken = run.rep, run.resolved, run.taken
     want = kernels.hash_insert_reference(key_ops, valid, rounds)
     err = max(int((rep.to(torch.int64) - want[0]).abs().max())
               if rep.numel() else 0,
@@ -847,33 +888,45 @@ def _hash_check(key_ops, valid, rounds: int, what: str) -> dict:
     if err:
         raise AssertionError(f"{what}: hash_insert differs from its plain "
                              f"version by {err}")
+    barriers = int(run.barriers)
+    if barriers != hash_barriers(int(taken), rounds):
+        raise AssertionError(
+            f"{what}: {barriers} barriers for {int(taken)} of {rounds} "
+            "rounds")
     n = valid.shape[0]
     leaders = valid & (rep == torch.arange(n, device=rep.device))
     return {"n": n, "live": int(valid.sum()), "operands": len(key_ops),
             "groups": int(leaders.sum()), "rounds": int(taken),
-            "unresolved": int((~resolved).sum()), "max_abs_err": err}
+            "unresolved": int((~resolved).sum()), "width": run.plan.width,
+            "blocks": run.plan.blocks, "spills": run.plan.spills,
+            "barriers": barriers, "max_abs_err": err}
 
 
-def _hash_bound_ms(key_ops, n: int):
+def _hash_bound_ms(key_ops, valid):
     """(bound ms, bound_by, bytes) of one ``hash_insert`` call: the key
-    operands read twice (the hash, the compare), the valid mask once, the
-    table (table_size(n) int32) written once, rep and resolved written
-    once; against a few integer operations per operand and row."""
+    operands of the live rows read twice (the hash, the compare; no row
+    reads a dead lane's keys), the valid mask once, the table
+    (table_size(n) int32) written once, rep and resolved written once;
+    against a few integer operations per operand and live row and per
+    lane."""
     from trino_tpu_torch.ops import kernels
 
-    bytes_ = 2 * sum(op.nbytes for op in key_ops) + n \
+    n = valid.shape[0]
+    live = int(valid.sum())
+    bytes_ = 2 * live * sum(op.element_size() for op in key_ops) + n \
         + 4 * kernels.table_size(n) + 4 * n + n
     bytes_ms = bytes_ / HBM_BYTES_PER_S * 1e3
-    ops_ms = n * (8 * len(key_ops) + 8) / VECTOR_OPS_PER_S * 1e3
+    ops_ms = (live * 8 * len(key_ops) + 8 * n) / VECTOR_OPS_PER_S * 1e3
     return max(bytes_ms, ops_ms), \
         "bytes" if bytes_ms >= ops_ms else "operations", bytes_
 
 
 def hash_device_ms(fn, iters: int = 10, attempts: int = 3):
-    """Device time per launch of the hash kernel (``probe_kernel``) that
-    ``fn`` launches once, from torch.profiler: the kernel alone, without
-    the wrapper's host work or the launch gap. None (not measured) when no
-    window recorded a launch."""
+    """Device time of one call of ``fn`` (one hash kernel call): every
+    device op of a profiled window of calls (the table's memset and the
+    kernel), each the mean over its recorded launches
+    (the profiler drops records now and then), summed; and those means by
+    op. (None, {}) (not measured) when no window recorded a kernel."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -886,15 +939,12 @@ def hash_device_ms(fn, iters: int = 10, attempts: int = 3):
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        total, count = 0.0, 0
-        for e in prof.key_averages():
-            if "probe_kernel" in e.key and e.device_type != DeviceType.CPU \
-                    and e.count:
-                total += e.self_device_time_total / 1e3
-                count += e.count
-        if count:
-            return total / count
-    return None
+        ops = {e.key: e.self_device_time_total / 1e3 / e.count
+               for e in prof.key_averages()
+               if e.device_type != DeviceType.CPU and e.count}
+        if any("kernel" in key for key in ops):
+            return sum(ops.values()), ops
+    return None, {}
 
 
 def _time_hash(key_ops, valid, rounds: int, shape: dict) -> dict:
@@ -912,7 +962,6 @@ def _time_hash(key_ops, valid, rounds: int, shape: dict) -> dict:
     def kernel():
         kernels.hash_insert(key_ops, valid, rounds)
 
-    n = valid.shape[0]
     single = []
     for _ in range(5):
         torch.cuda.synchronize()
@@ -923,11 +972,12 @@ def _time_hash(key_ops, valid, rounds: int, shape: dict) -> dict:
         end.record()
         end.synchronize()
         single.append(start.elapsed_time(end))
-    bound_ms, bound_by, bytes_ = _hash_bound_ms(key_ops, n)
-    device = hash_device_ms(kernel)
+    bound_ms, bound_by, bytes_ = _hash_bound_ms(key_ops, valid)
+    device, device_ops = hash_device_ms(kernel)
     return {**shape, "bytes": bytes_, "bound_ms": bound_ms,
             "bound_by": bound_by, "kernel_ms": time_ms(kernel),
             "single_ms": statistics.median(single), "device_ms": device,
+            "device_ops": device_ops,
             "bound_share": _share(bound_ms, device),
             "plain_ms": time_ms(lambda: kernels.hash_insert_reference(
                 key_ops, valid, rounds), iters=5),
@@ -936,19 +986,19 @@ def _time_hash(key_ops, valid, rounds: int, shape: dict) -> dict:
 
 def hash_kernel_phase():
     """The hash kernel against its plain version at every input of
-    ``HASH_CASES``, exactly (rep, resolved and the rounds run); each timed
-    beside its bound and the plain version. No single PyTorch call
-    computes first-occurrence group ids, so there is no library time."""
-    import numpy as np
+    ``HASH_CASES``, exactly (rep, resolved, the rounds run and the
+    barriers run); each timed beside its bound and the plain version. No
+    single PyTorch call computes first-occurrence group ids, so there is
+    no library time."""
     import torch
 
     from trino_tpu_torch.ops import kernels
 
-    rng = np.random.default_rng(20261018)
     dev = torch.device("cuda")
     shapes = {}
     for case, (n, distinct, null_share, rounds) in HASH_CASES.items():
-        ops, valid = _hash_inputs(rng, n, distinct, null_share, dev)
+        ops, valid = _hash_inputs(hash_case_rng(case), n, distinct,
+                                  null_share, dev)
         before = kernels.hash_insert.launches
         kernels.hash_insert(ops, valid, rounds)
         torch.cuda.synchronize()
@@ -959,11 +1009,21 @@ def hash_kernel_phase():
         shape = _hash_check(ops, valid, rounds, f"hash_kernel {case}")
         if case.startswith("near_full") and not shape["unresolved"]:
             raise AssertionError(f"hash_kernel {case}: no row overflowed")
+        if case == "many_rounds" and shape["rounds"] < 20 or \
+                case == "wide_entries" and shape["width"] != 64:
+            raise AssertionError(f"hash_kernel {case}: {shape['rounds']} "
+                                 f"rounds, {shape['width']}-bit entries")
         shapes[case] = _time_hash(ops, valid, rounds, shape)
         emit({"phase": "hash_kernel", "case": case, "probe_budget": rounds,
               "null_share": null_share, **shapes[case]})
         del ops, valid
     return shapes
+
+
+#: a timed replay whose rows are at most this many is written to the
+#: directory HASH_CALLS_DIR names, when it names one, for
+#: ``scripts/hash_group_ab.py --kernel`` to time on two trees
+HASH_KEEP_ROWS = 1 << 25
 
 
 def hash_replay_phase(phase: str, calls, page_by: str = "live"):
@@ -986,11 +1046,18 @@ def hash_replay_phase(phase: str, calls, page_by: str = "live"):
     if others:
         picks["page"] = max(others, key=lambda i: shapes[i][page_by])
     timed = {}
+    keep = os.environ.get("HASH_CALLS_DIR")
     for case, i in picks.items():
         ops, valid, rounds = calls[i]
         timed[case] = {"call": i, **_time_hash(ops, valid, rounds,
                                                shapes[i])}
         emit({"phase": phase, "case": case, **timed[case]})
+        if keep and valid.shape[0] <= HASH_KEEP_ROWS:
+            import torch
+
+            os.makedirs(keep, exist_ok=True)
+            torch.save(([op.cpu() for op in ops], valid.cpu(), rounds),
+                       os.path.join(keep, f"{phase}.{case}.pt"))
     return timed
 
 
@@ -3440,9 +3507,10 @@ def columns_replay_phase(phase: str, calls, page_by: str,
 
 #: what the kernels line keeps of each timed hash kernel call
 HASH_KEYS = ("n", "live", "operands", "groups", "rounds", "unresolved",
-             "max_abs_err", "kernel_ms", "device_ms", "single_ms",
-             "plain_ms", "bound_ms", "bound_by", "bound_share",
-             "library_ms")
+             "width", "blocks", "spills", "barriers", "max_abs_err",
+             "kernel_ms",
+             "device_ms", "single_ms", "plain_ms", "bound_ms", "bound_by",
+             "bound_share", "library_ms")
 
 
 def main() -> int:

@@ -3,6 +3,7 @@
 the grouping's time, and TPC-H q1, q3 and q18 over SF1 memory tables.
 
     python3 scripts/hash_group_ab.py --parent DIR [--runs 1] [--profile]
+        [--kernel [CALLS]] [--kernel-only]
 
 DIR is another tree of this repository (for example the parent commit
 unpacked with ``git archive HEAD | tar -x -C .archive/parent``). The
@@ -28,6 +29,24 @@ process:
   and q18 over them: a cold run, then three warm runs (host clock ending
   in a device sync), and one more warm run under the sync debug mode
   counting the whole query's host syncs beside its hash-grouped pages.
+
+With ``--kernel``, each process first times the hash kernel alone on the
+device (``chip_smoke.hash_device_ms`` of this tree's ``chip_smoke.py``:
+every device op of one ``kernels.hash_insert`` call, the memset
+included) at every input of this tree's ``chip_smoke.HASH_CASES``, at
+every call kept under the directory CALLS (the ``*.pt`` files
+``chip_smoke.py`` writes there when run with ``HASH_CALLS_DIR=CALLS``:
+each replay phase's timed page and merge), and at the DOUBLE-sum burst
+merge's shape (134,217,728 lanes, 192 live, too large to keep), each
+beside its bound (``chip_smoke._hash_bound_ms``: the live rows' keys).
+Beside the device time it times the call as the host issues it: 20
+back-to-back wrapper calls between CUDA events (``wrapper_ms``, the
+smoke's ``kernel_ms``), the host's time to issue one wrapper call
+(``wrapper_host_us``) and one bare call of the tree's C entry on outputs
+allocated beforehand (``entry_host_us``: the entry's memset and launch
+calls and ctypes, without the wrapper's checks, allocation and plan).
+``--kernel-only`` leaves out the pages, the memory tables and the
+queries.
 
 With ``--profile``, each turn also runs that tree's
 ``scripts/profile_torch_q1.py 18`` (q18 over the generator-fed SF1: the
@@ -55,16 +74,6 @@ WARM_RUNS = 3
 
 def emit(obj):
     print(json.dumps(obj), flush=True)
-
-
-def _memory_tables() -> dict:
-    """The memory tables' columns, as this tree's ``chip_smoke.py`` makes
-    them (``MEMORY_TABLES``)."""
-    spec = importlib.util.spec_from_file_location(
-        "chip_smoke", os.path.join(REPO, "chip_smoke.py"))
-    smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(smoke)
-    return smoke.MEMORY_TABLES
 
 
 def _count_syncs(fn):
@@ -114,7 +123,141 @@ def _group_page(hashtable, ops, valid, cols):
     return out
 
 
-def child(tree: str, turn: int) -> int:
+def _smoke():
+    """This tree's ``chip_smoke.py`` as a module: both trees' kernels are
+    timed and their inputs made by the same code."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(REPO, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
+def _burst_merge(dev):
+    """(key_ops, valid, rounds) at the DOUBLE-sum burst merge's shape:
+    134,217,728 lanes, 192 of them live (spread evenly), a (uint8 null
+    tag, int64 key) operand pair of 24 keys."""
+    import torch
+
+    n, live = 134_217_728, 192
+    valid = torch.zeros(n, dtype=torch.bool, device=dev)
+    at = torch.arange(live, device=dev) * (n // live)
+    valid[at] = True
+    key = torch.zeros(n, dtype=torch.int64, device=dev)
+    key[at] = torch.arange(live, device=dev) % 24 * 7919
+    return [torch.zeros(n, dtype=torch.uint8, device=dev), key], valid, 32
+
+
+def _kernel_inputs(smoke, calls_dir, dev):
+    """Every (name, (key_ops, valid, rounds)) the kernel mode times, made
+    one at a time."""
+    import torch
+
+    for case, (n, distinct, null_share, rounds) in smoke.HASH_CASES.items():
+        ops, valid = smoke._hash_inputs(smoke.hash_case_rng(case), n,
+                                        distinct, null_share, dev)
+        yield case, (ops, valid, rounds)
+    if calls_dir:
+        for name in sorted(os.listdir(calls_dir)):
+            if name.endswith(".pt"):
+                ops, valid, rounds = torch.load(
+                    os.path.join(calls_dir, name), map_location=dev)
+                yield name[:-3], (ops, valid, rounds)
+    yield "burst_merge_shape", _burst_merge(dev)
+
+
+def _entry_call(kernels, ops, valid, rounds):
+    """A call of this tree's C entry alone, on outputs allocated here
+    once: this tree's buffer and resolved, or the parent's rep, resolved
+    and scratch."""
+    import torch
+
+    n = valid.shape[0]
+    lib = kernels._hash_library()
+    table = kernels._operand_table(len(ops)).pack(*[v for op in ops for v in (
+        op.data_ptr(), kernels._OPERAND_CODE[op.dtype])])
+    stream = kernels._current_stream(valid.get_device())
+    tsize = kernels.table_size(n)
+    if hasattr(kernels, "hash_layout"):
+        width = kernels.hash_entry_width(n, rounds)
+        plan = kernels.hash_plan(n, rounds, kernels.hash_resident_grid(
+            valid.get_device(), width))
+        kept = [torch.empty(plan.nbytes // 4, dtype=torch.int32,
+                            device=valid.device),
+                torch.empty(n, dtype=torch.bool, device=valid.device)]
+        args = (table, len(ops), valid.data_ptr(), n, rounds, plan.width,
+                plan.blocks, kept[0].data_ptr(), kept[1].data_ptr(),
+                plan.nbytes, tsize, stream)
+    else:
+        kept = [torch.empty(n + 1, dtype=torch.int32, device=valid.device),
+                torch.empty(n, dtype=torch.bool, device=valid.device),
+                torch.empty(tsize + n + kernels.HASH_MAX_GRID,
+                            dtype=torch.int32, device=valid.device)]
+        args = (table, len(ops), valid.data_ptr(), n, rounds,
+                kept[0].data_ptr(), kept[1].data_ptr(),
+                kept[0].data_ptr() + 4 * n, tsize, kept[2].data_ptr(),
+                stream)
+
+    def call():
+        if lib.hash_insert(*args) != 0:
+            raise RuntimeError("hash_insert: the entry refused the call")
+        return kept
+    return call
+
+
+def _host_us(fn, calls: int = 50) -> float:
+    """The host's time to issue one call of ``fn``, over ``calls`` calls
+    after the card has gone idle (the device catches up afterwards)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    took = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return took / calls * 1e6
+
+
+def kernel_times(base: dict, calls_dir) -> None:
+    """One line per input of the kernel mode: the rows, live rows,
+    operands, rounds run, the bound, the device ms of one call, the
+    back-to-back wrapper ms and the host's us to issue a wrapper call and
+    a bare entry call."""
+    import torch
+
+    from trino_tpu_torch.ops import kernels
+
+    smoke = _smoke()
+    dev = torch.device("cuda")
+    for name, (ops, valid, rounds) in _kernel_inputs(smoke, calls_dir, dev):
+        n = valid.shape[0]
+
+        def wrapper():
+            return kernels.hash_insert(ops, valid, rounds)
+
+        taken = int(wrapper()[2])
+        bound_ms, _, _ = smoke._hash_bound_ms(ops, valid)
+        device_ms, device_ops = smoke.hash_device_ms(wrapper)
+        entry = _entry_call(kernels, ops, valid, rounds)
+        rec = {**base, "case": name, "n": n, "live": int(valid.sum()),
+               "operands": len(ops), "rounds": taken, "bound_ms": bound_ms,
+               "device_ms": device_ms, "device_ops": device_ops,
+               "wrapper_ms": smoke.time_ms(wrapper),
+               "wrapper_host_us": _host_us(wrapper),
+               "entry_host_us": _host_us(entry)}
+        if hasattr(kernels, "hash_layout"):
+            plan = kernels.hash_insert_run(ops, valid, rounds).plan
+            rec.update(width=plan.width, blocks=plan.blocks,
+                       spills=plan.spills)
+        emit(rec)
+        del ops, valid, entry
+        torch.cuda.empty_cache()
+
+
+def child(tree: str, turn: int, calls_dir, kernel: bool,
+          kernel_only: bool) -> int:
     sys.path.insert(0, tree)
     import numpy as np
     import torch
@@ -133,6 +276,10 @@ def child(tree: str, turn: int) -> int:
         else "parent"
     base = {"tree": name, "turn": turn}
     kernels.build()
+    if kernel:
+        kernel_times(base, calls_dir)
+    if kernel_only:
+        return 0
     dev = torch.device("cuda")
     rng = np.random.default_rng(SEED)
     for case, (n, groups, keys, states) in {
@@ -171,7 +318,7 @@ def child(tree: str, turn: int) -> int:
     runner = LocalQueryRunner({"tpch": tpch, "memory": MemoryConnector()},
                               Session(catalog="memory", schema="default"),
                               desired_splits=8, device="cuda")
-    for table, cols in _memory_tables().items():
+    for table, cols in _smoke().MEMORY_TABLES.items():
         t0 = time.perf_counter()
         runner.execute(f"create table {table} as select {', '.join(cols)} "
                        f"from tpch.sf1.{table}")
@@ -204,11 +351,17 @@ def main() -> int:
     ap.add_argument("--parent")
     ap.add_argument("--runs", type=int, default=1)
     ap.add_argument("--profile", action="store_true")
+    ap.add_argument("--kernel", nargs="?", const="", default=None,
+                    metavar="CALLS")
+    ap.add_argument("--kernel-only", action="store_true")
     ap.add_argument("--child")
     ap.add_argument("--turn", type=int, default=0)
     args = ap.parse_args()
+    kernel = args.kernel is not None or args.kernel_only
+    calls_dir = os.path.realpath(args.kernel) if args.kernel else None
     if args.child:
-        return child(os.path.realpath(args.child), args.turn)
+        return child(os.path.realpath(args.child), args.turn, calls_dir,
+                     kernel, args.kernel_only)
     card = ab_turns.card()
     emit({"card": card})
     trees = {"parent": os.path.realpath(args.parent),
@@ -217,7 +370,9 @@ def main() -> int:
     for name, turn, records in ab_turns.turns(
             trees, args.runs, lambda name, turn: [
                 sys.executable, os.path.abspath(__file__), "--child",
-                trees[name], "--turn", str(turn)]):
+                trees[name], "--turn", str(turn)] + (
+                    ["--kernel", calls_dir or ""] if kernel else []) + (
+                    ["--kernel-only"] if args.kernel_only else [])):
         lines += records
         if args.profile:
             prof = subprocess.run(

@@ -26,7 +26,7 @@ from trino_tpu_torch.sql.analyzer import Session
 from test_torch_segment_reduce_plan import EDGE_CASES, edge_gids
 # the hash kernel's inputs: chip_smoke.py's hash_kernel phase, which
 # imports nothing at module level beyond the standard library
-from chip_smoke import HASH_CASES, _hash_inputs
+from chip_smoke import HASH_CASES, _hash_inputs, hash_barriers
 
 pytestmark = pytest.mark.cuda
 
@@ -811,6 +811,49 @@ def test_hash_kernel_matches_plain_version(dev, case):
         assert torch.equal(g, w), case
     if case.startswith("near_full"):
         assert not bool(got[1].all())
+
+
+@pytest.mark.parametrize("case", sorted(HASH_CASES))
+def test_hash_kernel_runs_the_designs_barriers(dev, case):
+    """Every input gives the plain version's rep, resolved and rounds
+    run exactly, under the plan ``hash_plan`` makes for this card, in the
+    barriers the design runs (at most rounds + 1)."""
+    n, distinct, null_share, rounds = HASH_CASES[case]
+    ops, valid = _hash_inputs(np.random.default_rng(n + len(distinct)), n,
+                              distinct, null_share, dev)
+    run = kernels.hash_insert_run(ops, valid, rounds)
+    want = kernels.hash_insert_reference(ops, valid, rounds)
+    assert torch.equal(run.rep, want[0]) and torch.equal(run.resolved,
+                                                         want[1])
+    assert int(run.taken) == int(want[2])
+    barriers = int(run.barriers)
+    assert barriers == hash_barriers(int(run.taken), rounds)
+    assert barriers <= rounds + 1
+    width = kernels.hash_entry_width(n, rounds)
+    assert run.plan == kernels.hash_plan(
+        n, rounds, kernels.hash_resident_grid(valid.get_device(), width))
+
+
+def test_hash_plan_the_library_refuses_raises(dev, monkeypatch):
+    """A plan the C entry does not take (a buffer too small for the
+    table, one without room for the worklists its grid spills, a 32-bit
+    entry a tag overflows, more blocks than the card keeps resident)
+    raises with the CUDA error and launches nothing: no plain version."""
+    n = 4608
+    ops, valid = _hash_inputs(np.random.default_rng(5), n, [600], 0.0, dev)
+    kernels.hash_insert(ops, valid, 32)
+    good = kernels.hash_plan(
+        n, 32, kernels.hash_resident_grid(valid.get_device(), 32))
+    resident = kernels.hash_resident_grid(valid.get_device(), 32)
+    before = kernels.hash_insert.launches
+    for bad, rounds in ((good._replace(nbytes=1024), 32),
+                        (good._replace(blocks=1), 32),
+                        (good, 1 << 30),
+                        (good._replace(blocks=resident + 1), 32)):
+        monkeypatch.setattr(kernels, "_card_plan", lambda *_: bad)
+        with pytest.raises(RuntimeError, match="launch failed"):
+            kernels.hash_insert(ops, valid, rounds)
+    assert kernels.hash_insert.launches == before
 
 
 def test_hash_group_ids_on_the_card_equals_the_cpu(dev):

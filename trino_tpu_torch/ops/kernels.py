@@ -160,14 +160,20 @@ def _hash_library() -> ctypes.CDLL:
             vp = ctypes.c_void_p
             lib.hash_insert.argtypes = [
                 ctypes.c_char_p, ctypes.c_int, vp, ctypes.c_longlong,
-                ctypes.c_int, vp, vp, vp, ctypes.c_longlong, vp, vp]
+                ctypes.c_int, ctypes.c_int, ctypes.c_int, vp, vp,
+                ctypes.c_longlong, ctypes.c_longlong, vp]
             lib.hash_insert.restype = ctypes.c_int
+            lib.hash_insert_resident_grid.argtypes = [ctypes.c_int]
+            lib.hash_insert_resident_grid.restype = ctypes.c_int
             lib.hash_insert_error_string.argtypes = [ctypes.c_int]
             lib.hash_insert_error_string.restype = ctypes.c_char_p
             _check_constants(lib, "hash_insert",
                              ("hash_insert_max_operands",
-                              "hash_insert_max_grid"),
-                             (HASH_MAX_OPERANDS, HASH_MAX_GRID))
+                              "hash_insert_max_grid",
+                              "hash_insert_grid_threads",
+                              "hash_insert_list_rows"),
+                             (HASH_MAX_OPERANDS, HASH_MAX_GRID,
+                              HASH_GRID_THREADS, HASH_LIST_ROWS))
             _hash_lib = lib
         return _hash_lib
 
@@ -539,17 +545,30 @@ segment_reduce.launches = 0
 # `_hash_group_ids_impl` (:111-155), a jit `jax.lax.while_loop` (:153), not
 # a Pallas kernel: eager PyTorch has no device loop, and the same rounds as
 # a Python loop of PyTorch ops read the device once per round to decide
-# whether to go on. One cooperative launch of csrc/hash_insert.cu runs every
-# round on the device, in the reference's lockstep order (the smallest row
-# wins a contended slot), so its (rep, resolved) equal the plain version's
-# bit for bit. Bound on Hopper: memory — the key operands read twice, the
-# valid mask once, the table (2 * capacity rounded up to a power of two,
-# int32) written once, rep and resolved written once: at q1's page
-# (262,144 rows, four operands) 13.1 MB, 0.0039 ms at 3.35 TB/s; in
-# practice the call is bound by its grid barriers (see the source). The
-# wrapper's host work per call: the checks, three allocations (rep with
-# the rounds-run scalar, resolved, the scratch), one packed descriptor
-# table and the library call.
+# whether to go on. One call of csrc/hash_insert.cu runs every round on the
+# device in the reference's lockstep order (the smallest row wins a
+# contended slot), so its (rep, resolved, rounds run) equal the plain
+# version's bit for bit. A table entry is (round << bits) | row, so a claim
+# is one atomicMin that never beats an earlier round's owner, and the key
+# compare of round r - 1 shares a phase with the claim of round r: the slot
+# a phase compares against was claimed before the last barrier, and the
+# phase's own claims carry a later round, so they cannot change it. One
+# barrier a round (taken + 1 a call, `rounds` at the budget). One
+# cooperative launch whose blocks keep worklists (in shared memory up to
+# 4,096 rows a block, else spilled into the call's buffer), a block cache
+# of hot slots and the kernel's own barrier that also sums the stop test;
+# bound by its barriers and, at the largest pages, by the random reads of
+# owner keys. ``hash_plan`` sizes the call from the rows, the budget and
+# the card's resident grid (once per rows, budget and card). Bound on
+# Hopper: memory — the live rows' key operands read twice, the valid mask
+# once, the table (2 * capacity rounded up to a power of two, int32)
+# written once, rep and resolved written once: at q1's page with every
+# lane live (262,144 rows, four operands) 13.1 MB, 0.0039 ms at 3.35
+# TB/s. The wrapper's host work per
+# call: the checks, the plan (cached), two allocations (rep and the
+# rounds and barriers run, with the kernel's table, barrier words and
+# spilled worklists after them; resolved), one packed descriptor table
+# and the library call.
 
 
 def _i64(u: int) -> int:
@@ -561,11 +580,14 @@ _M1 = _i64(0xBF58476D1CE4E5B9)
 _M2 = _i64(0x94D049BB133111EB)
 _M3 = _i64(0x9E3779B97F4A7C15)  # golden-ratio increment
 #: the most operand descriptors a call takes, all passed in the launch
-#: parameters (csrc/hash_insert.cu ``kMaxOperands``: 120 key columns), and
-#: the most blocks of a call's grid (``kMaxGrid``); the library's own
-#: values are checked when it loads
+#: parameters (csrc/hash_insert.cu ``kMaxOperands``: 120 key columns), the
+#: most blocks of a call (``kMaxGrid``), its threads a block
+#: (``kGridThreads``) and the rows of a block's worklist in shared memory
+#: (``kListRows``); the library's own values are checked when it loads
 HASH_MAX_OPERANDS = 240
 HASH_MAX_GRID = 4096
+HASH_GRID_THREADS = 512
+HASH_LIST_ROWS = 4096
 _OPERAND_CODE = {torch.bool: 0, torch.uint8: 0, torch.int8: 1,
                  torch.int16: 2, torch.int32: 3, torch.int64: 4}
 
@@ -600,6 +622,55 @@ def table_size(cap: int) -> int:
     rounded up to a power of two (pages are pow2-padded already; an odd
     capacity still gets a sound ``& (size - 1)`` mask)."""
     return 1 << max(2 * cap - 1, 1).bit_length()
+
+
+class HashPlan(NamedTuple):
+    """How one ``hash_insert`` call runs on the card (``hash_plan``)."""
+    width: int      # bits of a table entry, 32 or 64
+    blocks: int     # the cooperative launch's blocks
+    spills: bool    # a block's worklist outgrows its shared memory, so
+                    # the lists take their place in the buffer
+    nbytes: int     # the call's buffer (``hash_layout``)
+
+
+def hash_entry_width(n: int, rounds: int) -> int:
+    """Bits of a table entry ``(round << bits) | row`` of a call of ``n``
+    rows and ``rounds`` rounds, ``bits`` the width of the largest row
+    index: 32 while every tag stays below the all-ones empty entry of 32
+    bits, else 64."""
+    bits = max(n - 1, 0).bit_length()
+    return 32 if rounds << bits < 1 << 32 else 64
+
+
+def hash_layout(n: int, width: int, spills: bool) -> Tuple[int, int, int]:
+    """(table offset, list offset, bytes) of the buffer of a call of ``n``
+    rows (csrc/hash_insert.cu ``layout``): rep (n int32) at 0, the rounds
+    and barriers run (two int32), the table (``table_size(n)`` entries of
+    ``width`` bits) at the next multiple of 256 bytes, its barrier's three
+    8-byte words, then, where they spill, the worklists (an 8-byte pair a
+    row, whole tiles). A multiple of 8 bytes."""
+    table_at = -(-(4 * n + 8) // 256) * 256
+    list_at = table_at + table_size(n) * width // 8 + 24
+    tiles = -(-n // HASH_GRID_THREADS)
+    return table_at, list_at, list_at + (
+        8 * tiles * HASH_GRID_THREADS if spills else 0)
+
+
+def hash_plan(n: int, rounds: int, resident: int) -> HashPlan:
+    """The plan of a ``hash_insert`` call of ``n`` rows and a budget of
+    ``rounds`` on a card that keeps ``resident`` blocks of the kernel
+    resident at once: a function of the three alone. A block a tile of
+    ``HASH_GRID_THREADS`` rows, as many as the card holds (at most
+    ``HASH_MAX_GRID``); a block's tiles (the ceiling of tiles over blocks)
+    spill their worklist past ``HASH_LIST_ROWS`` rows. The C entry
+    re-checks the plan against the call."""
+    if resident < 1:
+        raise ValueError(f"hash_plan: a resident grid of {resident} blocks")
+    width = hash_entry_width(n, rounds)
+    tiles = -(-n // HASH_GRID_THREADS)
+    blocks = max(1, min(tiles, resident, HASH_MAX_GRID))
+    spills = -(-tiles // blocks) * HASH_GRID_THREADS > HASH_LIST_ROWS
+    return HashPlan(width, blocks, spills, hash_layout(n, width, spills)[2])
 
 
 def hash_insert_reference(key_ops: Sequence[torch.Tensor],
@@ -698,11 +769,72 @@ def hash_insert(key_ops: Sequence[torch.Tensor], valid: torch.Tensor,
     count as resolved); ``taken`` is a 0-d int32 tensor, the rounds run.
 
     CPU tensors take the plain version. CUDA tensors launch the Hopper
-    kernel once (one call of the library, counted in
-    ``hash_insert.launches``), which reads nothing on the host."""
+    kernel once under ``hash_plan``'s plan (one call of the library,
+    counted in ``hash_insert.launches``), which reads nothing on the
+    host."""
     key_ops = list(key_ops)
     if not (valid.is_cuda or any(op.is_cuda for op in key_ops)):
         return hash_insert_reference(key_ops, valid, rounds)
+    n = valid.shape[0]
+    out, resolved, _ = _hash_call(key_ops, valid, rounds)
+    return out[:n], resolved, out[n]
+
+
+class HashRun(NamedTuple):
+    """``hash_insert_run``'s result: ``hash_insert``'s three outputs, the
+    grid barriers the call ran (a 0-d int32 tensor) and its plan; on the
+    CPU (the plain version) both None."""
+    rep: torch.Tensor
+    resolved: torch.Tensor
+    taken: torch.Tensor
+    barriers: Optional[torch.Tensor]
+    plan: Optional[HashPlan]
+
+
+def hash_insert_run(key_ops: Sequence[torch.Tensor], valid: torch.Tensor,
+                    rounds: int) -> HashRun:
+    """``hash_insert``, with the barriers the call ran and its plan."""
+    key_ops = list(key_ops)
+    if not (valid.is_cuda or any(op.is_cuda for op in key_ops)):
+        return HashRun(*hash_insert_reference(key_ops, valid, rounds),
+                       None, None)
+    n = valid.shape[0]
+    out, resolved, plan = _hash_call(key_ops, valid, rounds)
+    return HashRun(out[:n], resolved, out[n], out[n + 1], plan)
+
+
+#: blocks of the kernel each card keeps resident, by (device, entry width)
+_hash_resident: dict = {}
+
+
+def hash_resident_grid(device: int, width: int) -> int:
+    """Blocks of the kernel with ``width``-bit entries that card
+    ``device`` keeps resident at once, asked of the library once per card
+    and width (on the current device: the caller's)."""
+    got = _hash_resident.get((device, width))
+    if got is None:
+        got = _hash_lib.hash_insert_resident_grid(width)  # qlint: ignore[cache-coherence] load-once handle (see hash_insert)
+        if got <= 0:
+            msg = _hash_lib.hash_insert_error_string(-got).decode(  # qlint: ignore[cache-coherence] load-once handle (see hash_insert)
+                errors="replace")
+            raise RuntimeError(f"hash_insert: no resident grid on device "
+                               f"{device}: CUDA error {-got} ({msg})")
+        _hash_resident[(device, width)] = got
+    return got
+
+
+@functools.lru_cache(maxsize=1024)
+def _card_plan(n: int, rounds: int, device: int) -> HashPlan:
+    """``hash_plan`` on card ``device``, made once per rows, budget and
+    card."""
+    return hash_plan(n, rounds, hash_resident_grid(
+        device, hash_entry_width(n, rounds)))
+
+
+def _hash_call(key_ops: list, valid: torch.Tensor, rounds: int):
+    """The checks, the allocations and the library call of one CUDA call:
+    returns the call's buffer (int32: rep, the rounds run, the barriers
+    run, then the kernel's scratch), resolved and the plan."""
     _check_hash(key_ops, valid, rounds)
     if _recorded["hash_insert"] is not None:
         _record("hash_insert", ([op.clone() for op in key_ops],
@@ -710,17 +842,14 @@ def hash_insert(key_ops: Sequence[torch.Tensor], valid: torch.Tensor,
     if _hash_lib is None:  # qlint: ignore[cache-coherence] load-once handle: set once, under the build lock, before the first launch; no cached value depends on it
         _hash_library()  # qlint: ignore[trace-purity] the kernel's load-once (see _launch)
     n = valid.shape[0]
-    tsize = table_size(n)
-    k = len(key_ops)
-    device = valid.device
-    out = torch.empty(n + 1, dtype=torch.int32, device=device)
-    resolved = torch.empty(n, dtype=torch.bool, device=device)
-    scratch = torch.empty(tsize + n + HASH_MAX_GRID, dtype=torch.int32,
-                          device=device)
-    table = _operand_table(k).pack(*[v for op in key_ops for v in (
+    plan = _card_plan(n, rounds, valid.get_device())
+    out = torch.empty(plan.nbytes // 4, dtype=torch.int32,
+                      device=valid.device)
+    resolved = torch.empty(n, dtype=torch.bool, device=valid.device)
+    table = _operand_table(len(key_ops)).pack(*[v for op in key_ops for v in (
         op.data_ptr(), _OPERAND_CODE[op.dtype])])
-    _run_hash(key_ops, valid, rounds, out, resolved, scratch, table)
-    return out[:n], resolved, out[n]
+    _run_hash(key_ops, valid, rounds, plan, out, resolved, table)
+    return out, resolved, plan
 
 
 @functools.lru_cache(maxsize=128)
@@ -730,19 +859,20 @@ def _operand_table(k: int) -> struct.Struct:
 
 def _run_hash_signature(key_ops, valid, rounds, *_):
     """The library call's program signature: the rows, the operands'
-    dtypes and the probe budget."""
+    dtypes and the probe budget (the plan follows from them on a card)."""
     return valid.shape[0], tuple(op.dtype for op in key_ops), rounds
 
 
-def _run_hash(key_ops, valid, rounds: int, out, resolved, scratch,
+def _run_hash(key_ops, valid, rounds: int, plan: HashPlan, out, resolved,
               table: bytes) -> None:
     """The library call: every probe round of one page into ``out`` (rep,
-    then the rounds run) and ``resolved``, on the current stream."""
+    the rounds and barriers run; then the kernel's scratch) and
+    ``resolved``, on the current stream."""
     n = valid.shape[0]
     rc = _hash_lib.hash_insert(  # qlint: ignore[cache-coherence] load-once handle (see hash_insert)
-        table, len(key_ops), valid.data_ptr(), n, rounds, out.data_ptr(),
-        resolved.data_ptr(), out.data_ptr() + 4 * n, table_size(n),
-        scratch.data_ptr(), _current_stream(valid.get_device()))
+        table, len(key_ops), valid.data_ptr(), n, rounds, plan.width,
+        plan.blocks, out.data_ptr(), resolved.data_ptr(), plan.nbytes,
+        table_size(n), _current_stream(valid.get_device()))
     if rc != 0:
         msg = _hash_lib.hash_insert_error_string(rc).decode(errors="replace")  # qlint: ignore[cache-coherence] load-once handle (see hash_insert)
         raise RuntimeError(f"hash_insert launch failed: CUDA error {rc} "
@@ -756,7 +886,8 @@ def _run_hash(key_ops, valid, rounds: int, out, resolved, scratch,
 # ``hash_group_ids`` program, which the port's ``hash_group_ids`` entry
 # stands for, so the program's calls and the kernel's launches count
 # apart). Recorded on every launch, even inside that entry; its bytes are
-# the inputs, the outputs and the scratch (the table).
+# the inputs and the outputs (rep's buffer with the table and the spilled
+# worklists; resolved).
 _run_hash = instrument("hash_insert", _run_hash, kernel=True,
                        compile_ms=_charge_hash_load_ms,
                        signature=_run_hash_signature)
