@@ -914,3 +914,57 @@ def test_hash_kernel_takes_its_most_operands_and_refuses_more(dev):
     with pytest.raises(ValueError, match="at most"):
         kernels.hash_insert(ops + ops[:1], valid, 32)
     assert kernels.hash_insert.launches == before
+
+
+def test_a_device_read_shows_on_its_operator_span(dev):
+    """A known copy of N bytes to the host inside an operator's call is
+    one read of N bytes on that operator's span; while a CUDA-only
+    torch.profiler session records, the span also carries the read's
+    interval, inside the call's, and the trace holds the copy."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from trino_tpu_torch.exec.driver import Driver
+    from trino_tpu_torch.ops.operator import Operator
+    from trino_tpu_torch.telemetry import device_reads
+    from trino_tpu_torch.telemetry.tracing import Tracer, add_driver_spans
+
+    n = 1 << 20
+    t = torch.arange(n, dtype=torch.int32, device=dev)
+
+    class Reader(Operator):
+        done = False
+
+        def get_output(self):
+            if not self.done:
+                host = device_reads.to_cpu(t * 2, "test.operator")
+                assert host.device.type == "cpu" and int(host[3]) == 6
+                self.done = True
+            return None
+
+        def is_finished(self):
+            return self.done
+
+    def span_of(driver):
+        tracer = Tracer()
+        with tracer.span("task") as task:
+            add_driver_spans(tracer, driver, task)
+        (span,) = [s for s in tracer.finished() if s["name"] == "Reader"]
+        return span["attrs"]
+
+    driver = Driver([Reader()], collect_stats=True)
+    driver.run_to_completion()
+    a = span_of(driver)
+    assert (a["d2h_reads"], a["d2h_bytes"]) == (1, 4 * n)
+    assert "reads" not in a and "calls" not in a
+    torch.cuda.synchronize()
+    driver = Driver([Reader()], collect_stats=True)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        driver.run_to_completion()
+        torch.cuda.synchronize()
+    a = span_of(driver)
+    ((r0, r1, site, nbytes),) = a["reads"]
+    assert (site, nbytes) == ("test.operator", 4 * n)
+    assert any(c0 <= r0 <= r1 <= c1 for c0, c1 in a["calls"])
+    copies = [e for e in prof.events()
+              if "Memcpy DtoH" in e.name and e.device_type.name == "CUDA"]
+    assert copies, [e.name for e in prof.events()][:20]

@@ -312,12 +312,15 @@ def test_fused_lockstep_model_is_the_reference(monkeypatch, case):
 
 
 class _Flag:
-    """A stand-in for the overflow scalar that logs its host read."""
+    """A stand-in for the overflow scalar (a 0-d host tensor) that logs
+    its host read, made through the device-read helper's ``item()``."""
+
+    is_cuda = False
 
     def __init__(self, value, log):
         self.value, self.log = value, log
 
-    def __bool__(self):
+    def item(self):
         self.log.append("overflow read")
         return self.value
 

@@ -501,6 +501,31 @@ def test_recompile_host_sync_reaches_helpers_once_per_read():
     assert "reached from program kernel" in found[0].message
 
 
+def test_recompile_host_sync_through_the_read_helper():
+    """A call of the device-read helper on a tensor inside a program is
+    the read, reported where it is made, with its tensor as the
+    subject; the helper on host data is not a read."""
+    idx = index_of(**{"pkg.kern": """
+        import numpy as np
+        from ..telemetry.device_reads import host_scalar, to_host
+        from ..telemetry.profiler import instrument
+
+        def kernel(t):
+            if host_scalar(t.any(), "kern.any"):
+                pass
+            arr = to_host(t + 1, "kern.rows")
+            host = np.asarray([1, 2])
+            return arr, to_host(host, "kern.host")
+
+        kernel = instrument("kernel", kernel)
+    """})
+    found = [f for f in run_passes(idx, ["recompile"])
+             if f.rule == "host-sync"]
+    assert sorted((f.line, f.subject) for f in found) == [
+        (7, "sync:t.any():0"), (9, "sync:t + 1:0")]
+    assert "`host_scalar()` of a tensor" in found[0].message
+
+
 def test_recompile_static_accessors_are_clean():
     idx = index_of(**{"pkg.kern": """
         import numpy as np

@@ -3,13 +3,11 @@ the JAX engine.
 
 The tracing unit cases of tests/test_telemetry.py and tests/test_profiler.py
 on the port's copy of ``telemetry/tracing.py`` (the null tracer, context
-propagation across a process boundary, stage overlap, the Chrome trace
-and OTLP exports, the critical path and the slow-query record), the
-metrics exposition, the event history ring, and operator spans from a
-finished driver. The same synthetic spans through both engines'
-functions give the same values (the DOUBLE ``stage_overlap`` within an
-absolute 1e-9 of the expected third; both engines compute it with the
-same float operations, so they agree exactly). Then the families this
+propagation across a process boundary, the Chrome trace and OTLP
+exports, the critical path and the slow-query record), the metrics
+exposition, the event history ring, and operator spans from a finished
+driver. The same synthetic spans through both engines' functions give
+the same values. Then the families this
 slice adds — ``trino_jit_traces_total``, ``trino_profiler_programs_total``,
 ``trino_profiler_seconds_total`` and the ``trino_hbo_*`` families —
 round-tripped through the Prometheus text, with the JAX engine's names,
@@ -36,7 +34,6 @@ from trino_tpu_torch.telemetry.metrics import (ClusterMetrics,
                                                render_prometheus)
 from trino_tpu_torch.telemetry.tracing import (NULL_TRACER, Tracer,
                                                critical_path, span_tree,
-                                               stage_overlap,
                                                to_chrome_trace, trace_line)
 
 
@@ -78,24 +75,6 @@ def test_cross_process_parenting():
     roots, children, orphans = span_tree(t.finished())
     assert len(roots) == 1 and not orphans
     assert children[root.span_id][0]["name"] == "task x"
-
-
-def _task(frag, start, end):
-    return {"trace_id": "t", "span_id": f"{frag}{start}",
-            "parent_id": None, "name": "task", "process": "w",
-            "start": start, "end": end,
-            "attrs": {"span_kind": "task", "fragment": frag}}
-
-
-@pytest.mark.parametrize("spans,expect", [
-    ([_task(1, 0.0, 2.0), _task(2, 1.0, 3.0)], 1 / 3),
-    ([_task(1, 0.0, 1.0), _task(2, 1.0, 2.0)], 0.0),
-    ([_task(1, 0.0, 1.0)], 0.0),
-], ids=["overlapping", "barrier", "single"])
-def test_stage_overlap_equals_jax(spans, expect):
-    got = stage_overlap(spans)
-    assert abs(got - expect) < 1e-9
-    assert got == jtracing.stage_overlap(spans)
 
 
 def _synthetic_trace():

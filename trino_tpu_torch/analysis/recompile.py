@@ -19,6 +19,9 @@ Two rules:
     tensor value;
   - ``.item()`` / ``.tolist()`` / ``.cpu()`` / ``.numpy()`` on a tensor
     value (a chain such as ``t.cpu().numpy()`` is one read);
+  - a call of the device-read helper (``telemetry.device_reads``:
+    ``to_host``, ``to_cpu``, ``host_scalar``) on a tensor value: the
+    read is the call, reported where it is made;
   - ``torch.cuda.synchronize()`` and any ``.synchronize()``.
 
   A tensor value is what the pass can prove is one: a non-static,
@@ -68,6 +71,8 @@ _HOST_ATTRS = _STATIC_ATTRS | {
     "stride", "storage_offset", "untyped_storage", "type", "nbytes"}
 #: methods whose call is the host read itself
 _SYNC_METHODS = {"item", "tolist", "cpu", "numpy"}
+#: the device-read helper's functions: each call is one host read
+_READ_HELPERS = {"to_host", "to_cpu", "host_scalar"}
 #: torch functions that return host values
 _TORCH_HOST = {"device", "Size", "is_tensor", "iinfo", "finfo",
                "get_default_dtype", "is_floating_point", "is_complex",
@@ -297,6 +302,11 @@ def _host_syncs(func: FunctionInfo, tensors: _Kinds):
             elif chain is not None and chain.split(".")[-1] \
                     == "synchronize":
                 out.append((node, f"`{chain}()`", None))
+            elif chain is not None and chain.split(".")[-1] \
+                    in _READ_HELPERS and node.args \
+                    and tensors.is_tensor(node.args[0]):
+                out.append((node, f"`{chain}()` of a tensor",
+                            node.args[0]))
             elif isinstance(node.func, ast.Attribute) \
                     and node.func.attr in _SYNC_METHODS \
                     and not node.args \

@@ -18,10 +18,20 @@ from dataclasses import dataclass
 from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
+import torch
 
 from . import types as T
+from .telemetry.device_reads import host_scalar, to_host
 
 Array = Union[np.ndarray, "torch.Tensor"]  # noqa: F821
+
+
+def _host(x) -> np.ndarray:
+    """A block's array on the host: a tensor is read through the
+    device-read helper."""
+    if isinstance(x, torch.Tensor):
+        return to_host(x, "block.numpy")
+    return np.asarray(x)
 
 
 def padded_size(n: int, minimum: int = 16) -> int:
@@ -205,13 +215,13 @@ class Block:
             self.nulls is None or isinstance(self.nulls, np.ndarray)
         ):
             return self
-        nulls = None if self.nulls is None else np.asarray(self.nulls)
-        return Block(self.type, np.asarray(self.data), nulls, self.dictionary)
+        nulls = None if self.nulls is None else _host(self.nulls)
+        return Block(self.type, _host(self.data), nulls, self.dictionary)
 
     def nulls_array(self) -> np.ndarray:
         if self.nulls is None:
             return np.zeros(len(self), dtype=bool)
-        return np.asarray(self.nulls)
+        return _host(self.nulls)
 
     # -- positional ops (reference: Block.getRegion / copyPositions) ---------
 
@@ -225,7 +235,7 @@ class Block:
         return Block(self.type, self.data[positions], nulls, self.dictionary)
 
     def filter(self, keep_mask) -> "Block":
-        mask = np.asarray(keep_mask)
+        mask = _host(keep_mask)
         return self.numpy().take(np.nonzero(mask)[0])
 
     # -- python-value conversion --------------------------------------------
@@ -421,7 +431,7 @@ class DevicePage:
 
     def count(self) -> int:
         """Live row count (device sync)."""
-        return int(self.valid.sum())
+        return int(host_scalar(self.valid.sum(), "page.count"))
 
     @staticmethod
     def from_page(page: Page, device, capacity: Optional[int] = None
@@ -461,8 +471,8 @@ class DevicePage:
 
         if keep is None:
             keep = torch.nonzero(self.valid).squeeze(1)
-        cols = [c[keep].cpu().numpy() for c in self.cols]
-        nulls = [nl[keep].cpu().numpy() for nl in self.nulls]
+        cols = [to_host(c[keep], "page.live_lanes") for c in self.cols]
+        nulls = [to_host(nl[keep], "page.live_lanes") for nl in self.nulls]
         return int(keep.shape[0]), cols, nulls
 
     def to_page(self) -> Page:

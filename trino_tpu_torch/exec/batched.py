@@ -75,6 +75,7 @@ from ..ops.operator import (FilterProjectOperator, OutputCollectorOperator,
                             TableScanOperator)
 from ..ops.sortkeys import lexsort_indices
 from ..telemetry.profiler import instrument
+from ..telemetry.device_reads import host_scalar, to_cpu, to_host
 
 
 class BatchIneligible(Exception):
@@ -535,7 +536,7 @@ def _compact_lanes(cols, nulls, valid) -> Tuple:
     a global aggregation's single partial, every lane dead, is its
     result, whose first column is the row of empty-input states. One
     host sync per page."""
-    k = max(1, int(valid.sum(1).max()))
+    k = max(1, int(host_scalar(valid.sum(1).max(), "batched.compact")))
     if k == valid.shape[1]:
         return cols, nulls, valid
     keep = torch.sort((~valid).to(torch.uint8), dim=1,
@@ -665,7 +666,8 @@ def _apply_join(op: LookupJoinOperator, page: _BatchPage,
     pusable = page.valid & ~panynull
     lo, count = _batched_probe(b.key_sorted, b.usable_sorted, pkey,
                                pusable)
-    totals = np.where(spill, 0, count.sum(-1).cpu().numpy())
+    totals = np.where(spill, 0, to_host(count.sum(-1),
+                                        "batched.probe_totals"))
     need = int(totals.max()) if totals.size else 16
     cfg = (tuple(kc), tuple(repr(t) for t in key_types), b.key_mode)
     lane_cap = KERNEL_SIZING.suggest(("batched_join_expand",) + cfg,
@@ -792,7 +794,7 @@ def execute_batched(plan, param_types, bindings: Sequence[Tuple],
         acc = agg_accs[k]
         page = acc.finalize()
         if acc.overflow is not None:
-            spill |= acc.overflow.cpu().numpy()
+            spill |= to_host(acc.overflow, "batched.overflow")
         note_rows(k, stages[k][1], page.valid)
         run_from(k + 1, page)
 
@@ -800,9 +802,9 @@ def execute_batched(plan, param_types, bindings: Sequence[Tuple],
     out_pages: List[List[Page]] = [[] for _ in range(num_members)]
     for page in final:
         # one device -> host copy per column for the whole burst
-        cols = [c.cpu() for c in page.cols]
-        nulls = [n.cpu() for n in page.nulls]
-        valid = page.valid.cpu()
+        cols = [to_cpu(c, "batched.results") for c in page.cols]
+        nulls = [to_cpu(n, "batched.results") for n in page.nulls]
+        valid = to_cpu(page.valid, "batched.results")
         for m in range(num_members):
             if m in spilled:
                 continue
@@ -811,11 +813,12 @@ def execute_batched(plan, param_types, bindings: Sequence[Tuple],
                               list(page.dicts)).to_page()
             if host.num_rows:
                 out_pages[m].append(host)
-    scan_rows = int(scan_rows_acc) if scan_rows_acc is not None else 0
+    scan_rows = int(host_scalar(scan_rows_acc, "batched.scan_rows")) \
+        if scan_rows_acc is not None else 0
     stage_rows = [
         {"fp": getattr(stages[k][1], "_hbo_fp", None),
          "name": type(stages[k][1]).__name__,
-         "rows": rows_acc[k].cpu().numpy()}
+         "rows": to_host(rows_acc[k], "batched.stage_rows")}
         for k in sorted(rows_acc)]
     if getattr(scan, "_hbo_fp", None) is not None:
         # the shared scan is lane-invariant: every lane observed it

@@ -11,8 +11,13 @@ and CUDA-event spans ("device ms", see ``telemetry/profiler.py``) are
 attributed to it — the spans read at the end of each call, so under
 profiling an operator's wall includes its device work. Each operator's
 first and last active call are stamped (``first_ns``/``last_ns`` on
-``perf_counter_ns``, with the driver's ``epoch_anchor``), which places
-it on a trace timeline (``telemetry.tracing.add_driver_spans``).
+``perf_counter_ns``, with the process's ``epoch_anchor``), which places
+it on a trace timeline (``telemetry.tracing.add_driver_spans``). A
+call's thread CPU is summed beside its wall (``cpu_ns``: the wall less
+it is time the thread waited, for the interpreter lock, a lock or the
+device), and the host's reads of device tensors during the call are
+charged to the operator (``telemetry.device_reads``); while a
+torch.profiler session records, each call's interval is kept too.
 A task of a distributed query runs its drivers a quantum at a time on
 the task executor, parking on ``blocked_tokens`` after a quantum that
 moved nothing.
@@ -28,7 +33,8 @@ import torch
 
 from .. import jit_stats
 from ..ops.operator import Operator
-from ..telemetry import profiler
+from ..telemetry import device_reads, profiler
+from ..telemetry.tracing import EPOCH_ANCHOR
 
 
 @dataclass
@@ -61,6 +67,18 @@ class OperatorStats:
     #: timeline (telemetry.tracing.add_driver_spans)
     first_ns: int = 0
     last_ns: int = 0
+    #: thread CPU of this operator's calls (``time.thread_time_ns``)
+    cpu_ns: int = 0
+    #: the host's reads of device tensors made in this operator's calls
+    #: (telemetry.device_reads): count, bytes, wall waited
+    d2h_reads: int = 0
+    d2h_bytes: int = 0
+    d2h_wait_ns: int = 0
+    #: while a torch.profiler session records: each read's
+    #: (start, end, site, bytes) and each call's (start, end), on
+    #: perf_counter_ns; None outside one
+    read_spans: Optional[list] = None
+    call_spans: Optional[list] = None
     #: operator-reported metrics, pulled from ``op.metrics()`` once the
     #: driver finishes
     metrics: Optional[dict] = None
@@ -77,6 +95,10 @@ class OperatorStats:
         base = (f"{self.name}: {self.output_rows} rows, "
                 f"{self.output_pages} pages, {ms:.1f}ms, "
                 f"{self.compile_count} compiles")
+        if self.d2h_reads:
+            base += (f" [reads {self.d2h_reads}, "
+                     f"{self.d2h_bytes / 1e6:.3f} MB, "
+                     f"wait {self.d2h_wait_ns / 1e6:.1f} ms]")
         if self.flops or self.device_bytes or self.compile_ms \
                 or self.programs:
             base += (f" [cost {self.flops:.3g} flops, "
@@ -132,26 +154,33 @@ class Driver:
         #: whether the most recent process() quantum moved any page —
         #: tasks only park on blocked tokens after a no-progress quantum
         self.last_moved = False
-        #: (epoch seconds, perf_counter_ns) at driver creation: converts
-        #: the stats' first_ns/last_ns to wall-clock span timestamps
-        self.epoch_anchor = (time.time(), time.perf_counter_ns()) \
-            if collect_stats else None
+        #: (epoch seconds, perf_counter_ns): the process's one anchor
+        #: (telemetry.tracing.EPOCH_ANCHOR), which converts the stats'
+        #: first_ns/last_ns to wall-clock span timestamps
+        self.epoch_anchor = EPOCH_ANCHOR if collect_stats else None
 
     def _call(self, idx: int, fn):
-        """Run one operator call, attributing its wall time, first calls
-        and (under profiling) program costs to stats[idx] when
-        collecting stats."""
+        """Run one operator call, attributing its wall time, thread CPU,
+        device reads, first calls and (under profiling) program costs to
+        stats[idx] when collecting stats."""
         if not self.collect_stats:
             return fn()
         st = self.stats[idx]
+        local = device_reads.LOCAL
+        outer = local.target
+        local.target = st
         t0 = time.perf_counter_ns()
+        u0 = time.thread_time_ns()
         c0 = jit_stats.thread_total()
         prof = profiler.enabled()
         if prof:
             p0 = profiler.thread_totals()
             d0 = profiler.thread_device_ms()
             profiler.thread_programs()  # drop names run outside operators
-        out = fn()
+        try:
+            out = fn()
+        finally:
+            local.target = outer
         if prof:
             d1 = profiler.thread_device_ms()  # reads this call's events
             p1 = profiler.thread_totals()
@@ -160,12 +189,18 @@ class Driver:
             st.compile_ms += p1[2] - p0[2]
             st.device_ms += d1 - d0
             st.programs.update(profiler.thread_programs())
+        u1 = time.thread_time_ns()
         t1 = time.perf_counter_ns()
         st.wall_ns += t1 - t0
+        st.cpu_ns += u1 - u0
         st.compile_count += jit_stats.thread_total() - c0
         if st.first_ns == 0:
             st.first_ns = t0
         st.last_ns = t1
+        if device_reads.recording():
+            if st.call_spans is None:
+                st.call_spans = []
+            st.call_spans.append((t0, t1))
         return out
 
     def _count_page(self, idx: int, page):
@@ -208,7 +243,8 @@ class Driver:
         stats entries. Call after the driver finished."""
         for st, sums in zip(self.stats, self._row_sums):
             if sums:
-                st.output_rows += int(torch.stack(sums).sum())
+                st.output_rows += int(device_reads.host_scalar(
+                    torch.stack(sums).sum(), "driver.output_rows"))
                 sums.clear()
         for op, st in zip(self.operators, self.stats):
             m = getattr(op, "metrics", None)

@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from ..block import padded_size
+from ..telemetry.device_reads import host_scalar, to_host
 
 #: value sets larger than this keep only min/max (reference analog:
 #: dynamic-filtering.small.max-distinct-values-per-driver)
@@ -38,7 +39,8 @@ MAX_VALUE_SET = 1 << 17
 def _as_dtype(value, dtype: torch.dtype):
     """A host scalar cast to ``dtype`` as numpy casts it (a wider integer
     wraps), like the JAX engine's ``jnp.asarray(value, dtype=...)``."""
-    np_dtype = torch.empty(0, dtype=dtype).numpy().dtype
+    np_dtype = to_host(torch.empty(0, dtype=dtype),
+                       "dynamic_filter.dtype").dtype
     return np.asarray(value).astype(np_dtype).item()
 
 
@@ -63,8 +65,8 @@ class DynamicFilter:
         """Collect the domain from build-side tensors (called once at
         HashBuilder publish; one device->host transfer). The value set
         goes onto ``device``, by default the tensors' own."""
-        live = (valid & ~nulls).cpu().numpy()
-        vals = col.cpu().numpy()[live]
+        live = to_host(valid & ~nulls, "dynamic_filter.collect")
+        vals = to_host(col, "dynamic_filter.collect")[live]
         self.build_rows = int(vals.shape[0])
         if np.issubdtype(vals.dtype, np.floating):
             # NaN build keys: np.unique sorts NaN last, so hi would be
@@ -140,11 +142,13 @@ class DynamicFilter:
 
     @property
     def pruned_rows(self) -> int:
-        return 0 if self._pruned_dev is None else int(self._pruned_dev)
+        return 0 if self._pruned_dev is None else int(host_scalar(
+            self._pruned_dev, "dynamic_filter.stats"))
 
     @property
     def scanned_rows(self) -> int:
-        return 0 if self._seen_dev is None else int(self._seen_dev)
+        return 0 if self._seen_dev is None else int(host_scalar(
+            self._seen_dev, "dynamic_filter.stats"))
 
     def stats(self) -> dict:
         return {

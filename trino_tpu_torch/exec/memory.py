@@ -58,6 +58,7 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 
 from ..types import TrinoError
+from ..telemetry.device_reads import to_host
 
 
 class MemoryExceededError(TrinoError):
@@ -150,9 +151,9 @@ class SpilledPage:
             v[:k] = True
             self.valid = v
         else:
-            self.cols = [c.cpu().numpy() for c in page.cols]
-            self.nulls = [n.cpu().numpy() for n in page.nulls]
-            self.valid = page.valid.cpu().numpy()
+            self.cols = [to_host(c, "spill.page") for c in page.cols]
+            self.nulls = [to_host(n, "spill.page") for n in page.nulls]
+            self.valid = to_host(page.valid, "spill.page")
 
     @classmethod
     def from_host(cls, types, cols, nulls, valid, dictionaries,

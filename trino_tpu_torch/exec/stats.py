@@ -243,7 +243,10 @@ class QueryStatsTree:
                                                device_ms=o.device_ms,
                                                programs=set(o.programs),
                                                metrics=o.metrics,
-                                               node_fp=o.node_fp)
+                                               node_fp=o.node_fp,
+                                               d2h_reads=o.d2h_reads,
+                                               d2h_bytes=o.d2h_bytes,
+                                               d2h_wait_ns=o.d2h_wait_ns)
                     else:
                         a.output_rows += o.output_rows
                         a.output_pages += o.output_pages
@@ -254,6 +257,9 @@ class QueryStatsTree:
                         a.compile_ms += o.compile_ms
                         a.device_ms += o.device_ms
                         a.programs |= o.programs
+                        a.d2h_reads += o.d2h_reads
+                        a.d2h_bytes += o.d2h_bytes
+                        a.d2h_wait_ns += o.d2h_wait_ns
                         # exchange metrics describe the ONE shared
                         # boundary object; every task reports the same
                         # dict, so keep the first

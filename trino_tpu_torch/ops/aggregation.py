@@ -61,6 +61,7 @@ from .hashtable import hash_group_ids, hash_segment_reduce, \
     hashable_key_types, umod
 from .kernels import mix_operands, segment_reduce_columns
 from ..telemetry.profiler import instrument
+from ..telemetry.device_reads import host_scalar, to_host
 from .operator import Operator
 from .sortkeys import group_operands, lexsort_indices
 
@@ -709,7 +710,7 @@ class HashAggregationOperator(Operator):
                                      tuple(key_raws), key_nulls,
                                      tuple(state_cols), self._kinds)
         if exact:
-            if bool(overflow):  # qlint: ignore[recompile] the caller branches on it to fall back: the JAX engine reads it on the host too (trino_tpu/ops/aggregation.py:779)
+            if host_scalar(overflow, "aggregation.overflow"):  # qlint: ignore[recompile] the caller branches on it to fall back: the JAX engine reads it on the host too (trino_tpu/ops/aggregation.py:779)
                 return None
         elif observe and self.adaptive_partial \
                 and not self._adaptive_decided:
@@ -739,7 +740,8 @@ class HashAggregationOperator(Operator):
         aggregation; "Partial Partial Aggregates", PAPERS.md)."""
         stats = _bucket_reduction_stats(
             tuple(key_ops), valid, group_rows, ngroups,
-            self.adaptive_key_buckets).cpu().numpy().astype(np.int64)
+            self.adaptive_key_buckets)
+        stats = to_host(stats, "aggregation.adaptive").astype(np.int64)
         self._bucket_stats += stats
         self._adaptive_rows += int(stats[0].sum())
         self._adaptive_groups += int(stats[1].sum())
@@ -950,7 +952,8 @@ class HashAggregationOperator(Operator):
                                   self.path_counts.items() if v}}
         seeded = " (seeded by hbo)" \
             if self._adaptive_source == "hbo" else ""
-        pass_buckets = self._pass_buckets.tolist() \
+        pass_buckets = to_host(self._pass_buckets,
+                               "aggregation.metrics").tolist() \
             if self._pass_buckets is not None else None
         if self.passthrough:
             out["adaptive"] = "passthrough" + seeded

@@ -51,6 +51,7 @@ from typing import List, Sequence, Tuple
 import torch
 
 from ..telemetry.profiler import instrument
+from ..telemetry.device_reads import host_scalar
 from .kernels import _i64, _shr, splitmix64
 
 #: empty-slot sentinel, the uint64 all-ones as its int64 bits: packed
@@ -143,7 +144,8 @@ def global_hash_insert(packed: Sequence[torch.Tensor],
     resolved = [~v for v in vs]
     slot_of = [torch.zeros_like(s) for s in slot0]
     for r in range(rounds):
-        if not any(bool((~res).any()) for res in resolved):
+        if not any(host_scalar((~res).any(), "global_hash_agg.round")
+                   for res in resolved):
             break
         slots, claims = [], []
         for i in range(len(ps)):

@@ -27,6 +27,7 @@ import torch
 from .. import types as T
 from ..block import DevicePage, padded_size
 from ..telemetry.profiler import instrument
+from ..telemetry.device_reads import host_scalar
 from .operator import Operator
 from .sort import _concat_pages
 from .sortkeys import SortKey, lexsort_indices
@@ -61,7 +62,8 @@ def _topn_kernel(part_ops: Sequence[torch.Tensor],
     order2 = torch.sort((~keep).to(torch.uint8), stable=True).indices
     front = perm[order2]
     return ([c[front] for c in cols], [x[front] for x in nulls],
-            keep[order2], rk[order2], int(keep.sum()))  # qlint: ignore[recompile] the survivor count sizes the output page: the JAX engine reads it on the host too (trino_tpu/ops/grouped_topn.py:159)
+            keep[order2], rk[order2],
+            int(host_scalar(keep.sum(), "grouped_topn.survivors")))  # qlint: ignore[recompile] the survivor count sizes the output page: the JAX engine reads it on the host too (trino_tpu/ops/grouped_topn.py:159)
 
 
 # profiled program (telemetry.profiler): a plain call when profiling is off

@@ -54,6 +54,7 @@ from .. import types as T
 from ..block import (DevicePage, Dictionary, padded_size, storage_dtype,
                      unify_dictionaries)
 from ..telemetry.profiler import instrument
+from ..telemetry.device_reads import host_scalar, to_host
 from .kernels import _i64, _shr
 from .operator import Operator
 from .sort import _pad
@@ -475,9 +476,9 @@ def _host_spilled(types_, cols: List[np.ndarray], nulls: List[np.ndarray],
 
 def _host_arrays(page: DevicePage):
     """(cols, nulls, valid) of a device page as host numpy arrays."""
-    return ([c.cpu().numpy() for c in page.cols],
-            [n.cpu().numpy() for n in page.nulls],
-            page.valid.cpu().numpy())
+    return ([to_host(c, "join.spill") for c in page.cols],
+            [to_host(n, "join.spill") for n in page.nulls],
+            to_host(page.valid, "join.spill"))
 
 
 def _upload_parked(pages: List, nch: int):
@@ -944,7 +945,7 @@ class HashBuilderOperator(Operator):
 
         def cat(resident, parked):
             return torch.from_numpy(np.concatenate(
-                [resident.cpu().numpy()] + parked))
+                [to_host(resident, "join.spill")] + parked))
 
         sv = cat(valid, [h.valid for h in hosts])
         for ch, df in self.dynamic_filters:
@@ -1122,7 +1123,7 @@ class LookupJoinOperator(Operator):
         -> re-expand at the now-known exact size, chunked under the
         lane budget."""
         rec = self._pending.pop(0)
-        tot = int(rec["total"])
+        tot = int(host_scalar(rec["total"], "join.expand_total"))
         self._ratio = 0.75 * self._ratio \
             + 0.25 * (tot / max(rec["rows"], 1))
         if tot <= rec["cap"]:
@@ -1155,7 +1156,7 @@ class LookupJoinOperator(Operator):
         if padded_size(max(total, 16)) <= self.max_lanes:
             return [(page, pkey_cols, pusable, lo, count,
                      padded_size(max(total, 16)))]
-        counts = count.cpu().numpy().astype(np.int64)
+        counts = to_host(count, "join.expand_chunks").astype(np.int64)
         # padded_size(max(x, 16)) <= max_lanes  <=>  x <= limit
         limit = 1 << (self.max_lanes.bit_length() - 1) \
             if self.max_lanes >= 16 else -1
@@ -1352,7 +1353,8 @@ class LookupJoinOperator(Operator):
                                   pusable)
         rec = {"b": b, "page": page, "pkey_cols": pkey_cols,
                "pusable": pusable, "lo": lo, "count": count}
-        for unit in self._chunk_units(rec, int(count.sum())):
+        for unit in self._chunk_units(
+                rec, int(host_scalar(count.sum(), "join.expand_total"))):
             out, _keep, _bidx = self._make_out(b, *unit)
             self._ready.append(out)
 

@@ -35,6 +35,7 @@ from typing import List, NamedTuple, Optional, Sequence, Tuple
 import torch
 
 from ..telemetry.profiler import instrument
+from ..telemetry.device_reads import host_scalar
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -697,7 +698,7 @@ def hash_insert_reference(key_ops: Sequence[torch.Tensor],
     taken = 0
     for r in range(rounds):
         active = ~resolved
-        if not bool(active.any()):  # qlint: ignore[recompile] the plain version: a CUDA page runs the kernel, which reads nothing on the host
+        if not host_scalar(active.any(), "kernels.hash_round"):  # qlint: ignore[recompile] the plain version: a CUDA page runs the kernel, which reads nothing on the host
             break
         slot = torch.where(active, (slot0 + r) & (tsize - 1), dummy)
         owner = table[slot]

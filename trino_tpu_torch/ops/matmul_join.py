@@ -42,6 +42,7 @@ import torch
 from .. import types as T
 from ..block import DevicePage, padded_size
 from ..telemetry.profiler import instrument
+from ..telemetry.device_reads import host_scalar
 from .join import KEY_SENTINEL, BuildSide, JoinBridge, LookupJoinOperator
 
 #: default cap on the dense key domain (``matmul_join_max_key_range``):
@@ -178,15 +179,17 @@ class MatmulJoinOperator(LookupJoinOperator):
         if b.key_mode != "single":
             reason = f"{b.key_mode} key mode (needs one equi key)"
         else:
-            n_usable = int(b.usable_sorted.sum())
+            n_usable = int(host_scalar(b.usable_sorted.sum(),
+                                       "matmul_join.usable"))
             if n_usable == 0:
                 reason = "empty build"
             elif n_usable > MAX_BUILD_ROWS:
                 reason = f"build {n_usable} rows > f32-exact bound"
             else:
                 # usable rows sort first: [0, n_usable) spans the range
-                klo = int(b.key_sorted[0])
-                khi = int(b.key_sorted[n_usable - 1])
+                klo = int(host_scalar(b.key_sorted[0], "matmul_join.range"))
+                khi = int(host_scalar(b.key_sorted[n_usable - 1],
+                                      "matmul_join.range"))
                 if khi == KEY_SENTINEL:
                     reason = "key at the u64 sentinel"
                 elif khi - klo + 1 > self.max_key_range:

@@ -28,6 +28,7 @@ import torch
 
 from .. import types as T
 from ..block import DevicePage, Dictionary, Page, padded_size
+from ..telemetry.device_reads import host_scalar
 from .operator import SourceOperator
 from .sort import _concat_pages
 from .sortkeys import SortKey, lexsort_indices, sort_operands
@@ -183,9 +184,10 @@ class MergeExchangeSourceOperator(SourceOperator):
             batch.append(page)
             if more:
                 key, cnt = _stream_max_key(self._ops_of(page), page.valid)
-                if int(cnt) and (watermark is None or bool(
-                        _lex_le([k.reshape(1) for k in key],
-                                watermark)[0])):
+                if host_scalar(cnt, "merge_exchange.watermark") and (
+                        watermark is None or host_scalar(_lex_le(
+                            [k.reshape(1) for k in key], watermark)[0],
+                            "merge_exchange.watermark")):
                     watermark = key
         if self._carry is not None:
             batch.insert(0, self._carry)
@@ -218,12 +220,13 @@ class MergeExchangeSourceOperator(SourceOperator):
             safe = _lex_le(s_ops, watermark)
             emit_valid = s_valid & safe
             carry_valid = s_valid & ~safe
-        n_carry = int(carry_valid.sum())
+        n_carry = int(host_scalar(carry_valid.sum(),
+                                  "merge_exchange.rows"))
         if n_carry:
             self._carry = DevicePage(list(merged.types), s_cols,
                                      s_nulls, carry_valid,
                                      list(merged.dictionaries))
-        n_emit = int(emit_valid.sum())
+        n_emit = int(host_scalar(emit_valid.sum(), "merge_exchange.rows"))
         if n_emit == 0:
             return None  # watermark below every buffered row: wait
         return DevicePage(list(merged.types), s_cols, s_nulls,

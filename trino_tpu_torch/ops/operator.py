@@ -20,6 +20,7 @@ import torch
 from ..block import DevicePage, Page
 from ..connectors.spi import ColumnHandle, Connector, ConnectorSplit
 from ..expr.compiler import PageProcessor
+from ..telemetry.device_reads import host_scalar
 
 
 class Operator:
@@ -220,7 +221,7 @@ class LimitOperator(Operator):
 
     def needs_input(self) -> bool:
         if self._seen is not None:
-            self._known_seen = int(self._seen)
+            self._known_seen = int(host_scalar(self._seen, "limit.seen"))
         return (self._pending is None and self._known_seen < self.limit
                 and not self._finishing)
 

@@ -28,6 +28,7 @@ import torch
 
 from .. import types as T
 from ..block import Block, Dictionary, DevicePage, Page
+from ..telemetry.device_reads import to_host
 from ..parallel.exchange import (hash_partition_ids, key_to_u64,
                                  lut_tensor, string_hash_lut)
 from .operator import Operator, SourceOperator
@@ -478,7 +479,8 @@ class PartitionedOutputOperator(Operator):
         # the page's one trip to the host: the live lanes of the ids and
         # columns, compacted on the device first
         keep = torch.nonzero(page.valid).squeeze(1)
-        part = hash_partition_ids(keys_u64, n_logical)[keep].cpu().numpy()
+        part = to_host(hash_partition_ids(keys_u64, n_logical)[keep],
+                       "output.partition_ids")
         rows, cols, nulls = page.live_lanes(keep)
         valid = np.ones(rows, dtype=bool)
         if self.rebalancer is not None:

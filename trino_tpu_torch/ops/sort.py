@@ -28,6 +28,7 @@ import torch
 from .. import types as T
 from ..block import DevicePage, padded_size, unify_dictionaries
 from ..telemetry.profiler import instrument
+from ..telemetry.device_reads import to_host
 from .operator import Operator
 from .sortkeys import SortKey, lexsort_indices, sort_operands
 
@@ -187,9 +188,11 @@ class OrderByOperator(Operator):
             dev = p.to_device() if isinstance(p, SpilledPage) else p
             ops = _make_key_ops(dev, self.sort_keys)
             keep = torch.nonzero(dev.valid).squeeze(1)
-            host_cols.append([c[keep].cpu().numpy() for c in dev.cols])
-            host_nulls.append([n[keep].cpu().numpy() for n in dev.nulls])
-            host_ops.append([o[keep].cpu().numpy() for o in ops])
+            host_cols.append([to_host(c[keep], "sort.spill")
+                              for c in dev.cols])
+            host_nulls.append([to_host(n[keep], "sort.spill")
+                               for n in dev.nulls])
+            host_ops.append([to_host(o[keep], "sort.spill") for o in ops])
             if self._ctx is not None:
                 self._ctx.free(2 * nb)
         nch = len(self.input_types)

@@ -19,6 +19,7 @@ import torch
 
 from .. import types as T
 from ..block import DevicePage, Dictionary, padded_size, storage_dtype
+from ..telemetry.device_reads import host_scalar
 from .operator import Operator
 
 
@@ -102,7 +103,8 @@ class UnnestOperator(Operator):
             counts = torch.maximum(counts, clen)
             per_chan.append((codes, clen, offsets, flat_vals, flat_null,
                              edict))
-        total = int(counts.sum())  # one scalar sync per page
+        # one scalar sync per page
+        total = int(host_scalar(counts.sum(), "unnest.total"))
         cap = padded_size(max(total, 16))
         probe_idx, within, lane_valid = _expand_with_pos(counts, cap)
 

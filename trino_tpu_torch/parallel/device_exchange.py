@@ -91,6 +91,7 @@ import torch
 from .. import types as T
 from ..block import DevicePage, Dictionary, padded_size, storage_dtype
 from ..telemetry.profiler import instrument
+from ..telemetry.device_reads import host_scalar, to_host
 from .exchange import (hash_partition_ids, key_to_u64, lut_tensor,
                        partition_histogram, repartition_a2a,
                        string_hash_lut)
@@ -407,7 +408,8 @@ class DeviceExchange:
                 valid.append(torch.zeros((cap,), dtype=torch.bool,
                                          device=device))
         # one read per slab (not one per page)
-        if not any(bool(v.any()) for v in valid):
+        if not any(host_scalar(v.any(), "device_exchange.any_rows")
+                   for v in valid):
             return [[] for _ in range(n)]
 
         luts = [tuple(lut_tensor(string_hash_lut(target[c]), device)
@@ -444,7 +446,7 @@ class DeviceExchange:
             # one host read sizes the lanes.
             cprog = _count_program(devs, tkey, kkey, n, d)
             hist, need, pair_max = cprog(cols, nulls, valid, luts)
-            hist = hist.cpu().numpy()
+            hist = to_host(hist, "device_exchange.count")
             self.count_collectives += 1
             with DeviceExchange._total_lock:
                 DeviceExchange.total_count_collectives += 1
@@ -453,11 +455,13 @@ class DeviceExchange:
                 hot = {p for p in range(n)
                        if hist[p] / total > self.hot_split_threshold}
             if hot:
-                pair_np = pair_max.cpu().numpy().reshape(n, d)
+                pair_np = to_host(pair_max, "device_exchange.count"
+                                  ).reshape(n, d)
                 per_dest = padded_size(max(_salted_need_bound(
                     pair_np, hot, n, d), 16))
             else:
-                per_dest = padded_size(max(int(need), 16))
+                per_dest = padded_size(max(int(host_scalar(
+                    need, "device_exchange.count")), 16))
         elif sizing == "legacy":
             per_dest = padded_size(max(32, (2 * cap) // d))
         per_dest = min(per_dest, cap)
@@ -475,7 +479,8 @@ class DeviceExchange:
                 cols, nulls, valid, luts, hot_mask)
             self.data_collectives += 1
             lanes_moved += d * d * per_dest  # at THIS attempt's capacity
-            if sum(int(o) for o in overflow) == 0:
+            if sum(int(host_scalar(o, "device_exchange.overflow"))
+                   for o in overflow) == 0:
                 break
             if per_dest >= cap:
                 raise T.TrinoError(
@@ -497,8 +502,10 @@ class DeviceExchange:
         # pass in any mode): receiver r's lanes [s*per_dest,
         # (s+1)*per_dest) came from sender s, so per-(receiver, sender)
         # valid counts give the exact max pair load actually observed
-        ov = np.stack([v.cpu().numpy() for v in out_valid])
-        op_ids = np.stack([x.cpu().numpy() for x in out_part])
+        ov = np.stack([to_host(v, "device_exchange.observe")
+                       for v in out_valid])
+        op_ids = np.stack([to_host(x, "device_exchange.observe")
+                           for x in out_part])
         pair_rows = ov.reshape(d, d, per_dest).sum(axis=2)
         observed_max = int(pair_rows.max()) if pair_rows.size else 0
         partition_rows = np.bincount(op_ids[ov], minlength=n)[:n]

@@ -28,12 +28,22 @@ workers share this process's ``cache.template_seeds()``,
 ``telemetry.stats_store``, the profiler and the exchange sizing history,
 so history is coherent across tasks by construction.
 
-Tracing (``query_tracing_enabled``): a ``query`` root span, one
-``stage f<id>`` span per fragment, one ``task f<id>.<t>`` span per task
-and the task's operator spans (``telemetry.tracing.add_driver_spans``)
-ride ``stats["trace"]`` and EXPLAIN ANALYZE's Trace line; a query slower
-than ``slow_query_log_threshold`` gets ``stats["slow_query"]`` with its
-critical path.
+Each statement runs in a context of its own (``_Statement``): its
+tracer, spans, plan, memory pool, history binding, stats and device-read
+counters, so statements in flight at once share none of them.
+
+Tracing (``query_tracing_enabled``): a ``query`` root span, opened before
+parsing; the statement spans beneath it (``span_kind`` ``statement``:
+``parse``, ``plan`` with ``plan_cache_hit``, ``results``, ``history``);
+one ``stage f<id>`` span per fragment, one ``task f<id>.<t>`` span per
+task and the task's operator spans
+(``telemetry.tracing.add_driver_spans``) ride ``stats["trace"]`` and
+EXPLAIN ANALYZE's Trace line; a query slower than
+``slow_query_log_threshold`` gets ``stats["slow_query"]`` with its
+critical path. The host's reads of device tensors
+(``telemetry.device_reads``) are charged to the operator that made
+them, else to the task, else to the statement, and ride the operator,
+task and root spans.
 """
 
 from __future__ import annotations
@@ -59,6 +69,35 @@ from ..runner import QueryResult
 from ..sql import ast
 from ..sql.analyzer import Session
 from ..sql.parser import parse_statement
+from ..telemetry import device_reads
+from ..telemetry.tracing import (NULL_SPAN, NULL_TRACER, Tracer,
+                                 span_counters)
+
+
+class _Statement:
+    """What one statement's execution owns: its tracer and root span,
+    its device-read counters, its plan and fragments, its memory pool,
+    history binding and per-stage stats."""
+
+    def __init__(self, tracer):
+        self.tracer = tracer
+        self.root_span = NULL_SPAN
+        #: reads made outside any operator's or task's quantum
+        self.reads = device_reads.Reads()
+        self.root: Optional[OutputNode] = None
+        self.fragments: Optional[List[PlanFragment]] = None
+        self.plan_shape = None
+        self.hbo = None
+        self.hbo_estimates = None
+        self.memory_pool = None
+        self.collect_stats = False
+        self.stage_stats: list = []
+
+    def span(self, name: str, **attrs):
+        """A statement span under the root (a no-op when tracing is
+        off)."""
+        return self.tracer.span(name, parent=self.root_span,
+                                span_kind="statement", **attrs)
 
 
 class DistributedQueryRunner:
@@ -124,6 +163,10 @@ class DistributedQueryRunner:
 
     def create_fragments(self, sql_or_stmt,
                          hbo=None) -> List[PlanFragment]:
+        return self.plan_fragments(sql_or_stmt, hbo=hbo)[1]
+
+    def plan_fragments(self, sql_or_stmt, hbo=None):
+        """(plan root, fragments) of a statement."""
         stmt = sql_or_stmt if isinstance(sql_or_stmt, ast.Statement) \
             else parse_statement(sql_or_stmt)
         planner = LogicalPlanner(self.metadata, self.session)
@@ -140,9 +183,7 @@ class DistributedQueryRunner:
                                 "hbo_distribution_enabled") else None)
         if trace is not None:  # exchange planning rebuilt the root node
             root.optimizer_trace = trace
-        self._root = root
-        self._fragments = fragment_plan(root)
-        return self._fragments
+        return root, fragment_plan(root)
 
     def explain(self, sql: Optional[str], stmt=None) -> str:
         from ..planner.optimizer import provenance_lines
@@ -152,50 +193,82 @@ class DistributedQueryRunner:
         # EXPLAIN plans through the statement's history view, so the
         # rendered join order / distribution / strategy choices are
         # exactly what the next execution would run
-        text = fragments_str(self.create_fragments(
-            stmt, hbo=self._hbo_context(stmt)))
-        prov = provenance_lines(self._root)
+        root, fragments = self.plan_fragments(
+            stmt, hbo=self._hbo_context(stmt))
+        text = fragments_str(fragments)
+        prov = provenance_lines(root)
         return text + ("\n" + "\n".join(prov) if prov else "")
 
     def execute(self, sql: str) -> QueryResult:
-        stmt = parse_statement(sql)
-        if isinstance(stmt, ast.Explain) and stmt.analyze and \
-                isinstance(stmt.statement, (ast.QueryStatement,
-                                            ast.Insert,
-                                            ast.CreateTableAsSelect)):
-            # DML included: the writer path's exchange surface (scaled
-            # writers' rebalance counters) is only observable here
-            return self._explain_analyze(stmt.statement,
-                                         verbose=stmt.verbose)
-        if not isinstance(stmt, ast.QueryStatement):
-            if isinstance(stmt, (ast.Insert, ast.CreateTableAsSelect)):
-                # writes distribute: scaled writer tasks in the source
-                # stage, rowcounts summed (exchanges._v_TableWriterNode)
-                return self._execute_query(stmt)
-            # remaining DDL doesn't distribute; delegate
-            from ..runner import LocalQueryRunner
+        return self._execute(sql)
 
-            return LocalQueryRunner(self.metadata.connectors,
-                                    self.session,
-                                    device=self.device).execute(sql)
-        return self._execute_query(stmt)
+    def _execute_query(self, stmt: ast.Statement,
+                       collect_stats: bool = False) -> QueryResult:
+        """A parsed query, INSERT or CTAS, run as ``execute`` runs it
+        (without a parse span); ``collect_stats`` keeps the stats tree
+        (``stats["query_stats"]``)."""
+        return self._execute(stmt, collect_stats)
 
-    def _explain_analyze(self, stmt: ast.QueryStatement,
-                         verbose: bool = False) -> QueryResult:
-        """Distributed EXPLAIN ANALYZE: run collecting the query/stage/
-        task stats tree and render it (reference: the QueryStats
-        hierarchy + planprinter; round-2 verdict flagged its absence).
-        VERBOSE enables the compiled-program profiler so per-operator
-        rows carry flops / bytes / compile-ms and a Kernels line shows
-        what this run compiled vs reused."""
+    def _execute(self, sql, collect_stats: bool = False) -> QueryResult:
+        """One statement (SQL text, or a parsed statement) in a context
+        of its own."""
         from ..telemetry import profiler
 
-        before = profiler.totals() if verbose else None
-        with profiler.profiling(verbose):
-            res = self._execute_query(stmt, collect_stats=True)
+        st = _Statement(Tracer(process="coordinator")
+                        if SP.value(self.session, "query_tracing_enabled")
+                        else NULL_TRACER)
+        t0 = time.perf_counter()
+        verbose = before = None
+        with device_reads.charging(st.reads), \
+                st.tracer.span("query") as root:
+            st.root_span = root
+            if isinstance(sql, ast.Statement):
+                stmt = sql
+            else:
+                with st.span("parse"):
+                    stmt = parse_statement(sql)
+            if isinstance(stmt, ast.Explain) and stmt.analyze and \
+                    isinstance(stmt.statement, (ast.QueryStatement,
+                                                ast.Insert,
+                                                ast.CreateTableAsSelect)):
+                # DML included: the writer path's exchange surface (scaled
+                # writers' rebalance counters) is only observable here.
+                # VERBOSE enables the compiled-program profiler so
+                # per-operator rows carry flops / bytes / compile-ms
+                verbose, stmt = stmt.verbose, stmt.statement
+                before = profiler.totals() if verbose else None
+                with profiler.profiling(verbose):
+                    res = self._run_query(st, stmt, collect_stats=True)
+            elif isinstance(stmt, (ast.QueryStatement, ast.Insert,
+                                   ast.CreateTableAsSelect)):
+                # writes distribute: scaled writer tasks in the source
+                # stage, rowcounts summed (exchanges._v_TableWriterNode)
+                res = self._run_query(st, stmt, collect_stats)
+            else:
+                # remaining DDL doesn't distribute; delegate
+                from ..runner import LocalQueryRunner
+
+                return LocalQueryRunner(self.metadata.connectors,
+                                        self.session,
+                                        device=self.device).execute(sql)
+            root.set("statement", type(stmt).__name__)
+            for key, value in span_counters(st.reads).items():
+                root.set(key, value)
+        self._finish(st, res, time.perf_counter() - t0)
+        if verbose is not None:
+            return self._explain_analyze(st, res, verbose, before)
+        return res
+
+    def _explain_analyze(self, st: _Statement, res: QueryResult,
+                         verbose: bool, before) -> QueryResult:
+        """Distributed EXPLAIN ANALYZE: render the query/stage/task
+        stats tree the run collected (reference: the QueryStats
+        hierarchy + planprinter), under the fragments it ran; VERBOSE
+        adds a Kernels line of what this run compiled vs reused."""
+        from ..telemetry import profiler
+
         tree = res.stats["query_stats"]
-        # _execute_query already planned + fragmented; render those
-        lines = fragments_str(self._fragments).splitlines()
+        lines = fragments_str(st.fragments).splitlines()
         lines.append("")
         lines.extend(tree.render())
         if verbose:
@@ -206,41 +279,35 @@ class DistributedQueryRunner:
                            [(line,) for line in lines],
                            stats={"query_stats": tree.to_dict()})
 
-    def _execute_query(self, stmt: ast.QueryStatement,
-                       collect_stats: bool = False) -> QueryResult:
-        """Profiling envelope around the execution body: the
-        ``query_profiling_enabled`` session knob turns the compiled-
-        program registry on for this query (EXPLAIN ANALYZE VERBOSE
-        layers its own ``profiling(True)`` on top)."""
-        from ..telemetry.profiler import profiling
-
-        from ..telemetry.tracing import NULL_TRACER, Tracer
-
-        self._tracer = Tracer(process="coordinator") \
-            if SP.value(self.session, "query_tracing_enabled") \
-            else NULL_TRACER
-        t0 = time.perf_counter()
-        with profiling(SP.value(self.session,
-                                "query_profiling_enabled")):
-            with self._tracer.span(
-                    "query", statement=type(stmt).__name__) as root:
-                self._root_span = root
-                res = self._execute_query_body(stmt, collect_stats)
-        if self._tracer.enabled:
-            spans = self._tracer.finished()
+    def _finish(self, st: _Statement, res: QueryResult,
+                wall_s: float) -> None:
+        """The finished trace onto the result (and its stats tree), and
+        the slow-query record of a statement slower than
+        ``slow_query_log_threshold``."""
+        if st.tracer.enabled:
+            spans = st.tracer.finished()
             res.stats["trace"] = spans
             tree = res.stats.get("query_stats")
             if tree is not None:
                 tree.trace = spans
         threshold = SP.value(self.session, "slow_query_log_threshold")
-        wall_s = time.perf_counter() - t0
         if threshold and wall_s > threshold:
             from ..telemetry.tracing import slow_query_record
 
             res.stats["slow_query"] = slow_query_record(
                 res.stats.get("trace"), wall_s * 1e3, threshold,
                 worst_misestimate=(res.stats.get("hbo") or {}).get("worst"))
-        return res
+
+    def _run_query(self, st: _Statement, stmt: ast.QueryStatement,
+                   collect_stats: bool = False) -> QueryResult:
+        """Profiling envelope around the execution body: the
+        ``query_profiling_enabled`` session knob turns the compiled-
+        program registry on for this query (EXPLAIN ANALYZE VERBOSE
+        layers its own ``profiling(True)`` on top)."""
+        from ..telemetry.profiler import profiling
+
+        with profiling(SP.value(self.session, "query_profiling_enabled")):
+            return self._execute_query_body(st, stmt, collect_stats)
 
     def _hbo_context(self, stmt):
         """History-based-statistics binding (same exclusions as the
@@ -254,26 +321,26 @@ class DistributedQueryRunner:
             stmt, self.session, self.metadata,
             alpha=SP.value(self.session, "hbo_ewma_alpha"))
 
-    def _execute_query_body(self, stmt: ast.QueryStatement,
+    def _execute_query_body(self, st: _Statement,
+                            stmt: ast.QueryStatement,
                             collect_stats: bool = False) -> QueryResult:
-        import time as _time
+        from ..exec.stats import QueryStatsTree
 
-        from ..exec.stats import QueryStatsTree, StageStatsTree
-
-        self._hbo = hbo_ctx = self._hbo_context(stmt)
-        key = self._plan_cache_key(stmt)
-        cached = self.plan_cache.lookup(key) if key is not None else None
-        plan_hit = cached is not None
-        if cached is not None:
-            self._root, self._fragments = cached
-            fragments = self._fragments
-        else:
-            fragments = self.create_fragments(stmt, hbo=hbo_ctx)
-            if key is not None:
-                self.plan_cache.store(key, (self._root, self._fragments),
-                                      128)
-        self._plan_shape = key[0] if key is not None else None
-        root: OutputNode = self._root
+        with st.span("plan") as plan_span:
+            st.hbo = hbo_ctx = self._hbo_context(stmt)
+            key = self._plan_cache_key(stmt)
+            cached = self.plan_cache.lookup(key) if key is not None \
+                else None
+            plan_hit = cached is not None
+            if cached is None:
+                cached = self.plan_fragments(stmt, hbo=hbo_ctx)
+                if key is not None:
+                    self.plan_cache.store(key, cached, 128)
+            st.root, st.fragments = cached
+            plan_span.set("plan_cache_hit", plan_hit)
+        st.plan_shape = key[0] if key is not None else None
+        root: OutputNode = st.root
+        fragments = st.fragments
         buffers: Dict[int, OutputBuffer] = {}
         result_pages: List[Page] = []
         from ..exec.memory import pool_from_session
@@ -281,14 +348,13 @@ class DistributedQueryRunner:
         # one pool per query across all tasks: device HBM is a
         # per-process resource (reference: ClusterMemoryManager enforcing
         # a query's global limit over per-node reservations)
-        self._memory_pool = pool_from_session(self.session)
-        self._stage_stats: List[StageStatsTree] = []
+        st.memory_pool = pool_from_session(self.session)
         # history recording needs per-operator row counts, so HBO turns
         # the stats-collecting driver path on even for plain execute();
         # so do the operator spans of a traced query
-        self._collect_stats = collect_stats or hbo_ctx is not None \
-            or self._tracer.enabled
-        t0 = _time.perf_counter()
+        st.collect_stats = collect_stats or hbo_ctx is not None \
+            or st.tracer.enabled
+        t0 = time.perf_counter()
 
         # tasks run as cooperative generators on the process-wide
         # TaskExecutor: concurrent queries time-share the pool through
@@ -301,26 +367,27 @@ class DistributedQueryRunner:
         try:
             if streaming:
                 result_pages = self._execute_streaming(
-                    executor, fragments, root, buffers)
+                    st, executor, fragments, root, buffers)
             else:
                 for frag in fragments:
                     ntasks = 1 if frag.partitioning == "single" \
                         else self.n_workers
                     if frag.output_kind == "output":
                         collected = self._run_output_fragment(
-                            executor, frag, root, ntasks, buffers)
+                            st, executor, frag, root, ntasks, buffers)
                         result_pages = collected
                     else:
                         buffers[frag.fragment_id] = self._run_fragment(
-                            executor, frag, ntasks, buffers)
+                            st, executor, frag, ntasks, buffers)
 
             rows: List[tuple] = []
-            for p in result_pages:
-                rows.extend(p.to_rows())
-            stats = {"memory": self._memory_pool.stats()}
+            with st.span("results"):
+                for p in result_pages:
+                    rows.extend(p.to_rows())
+            stats = {"memory": st.memory_pool.stats()}
         except BaseException:
             # reap spill files + free residue even when the query dies
-            self._memory_pool.close()
+            st.memory_pool.close()
             raise
         names = root.column_names
         types_ = [s.type for s in root.outputs]
@@ -336,12 +403,13 @@ class DistributedQueryRunner:
         stats["operators"] = [
             dict(o.metrics or {}, name=o.name, stage=s.stage_id,
                  task=t.task_id)
-            for s in self._stage_stats for t in s.tasks
+            for s in st.stage_stats for t in s.tasks
             for o in t.operators]
         if plan_hit:
             stats["plan_cache"] = "hit"
         if hbo_ctx is not None:
-            summary = self._hbo_record(hbo_ctx, root, stats)
+            with st.span("history"):
+                summary = self._hbo_record(st, hbo_ctx, root, stats)
             if summary:
                 stats["hbo"] = summary
         if collect_stats:
@@ -349,21 +417,21 @@ class DistributedQueryRunner:
             # only now, after every consumer ran: the device collective
             # is consumer-triggered, so producer-stage completion would
             # be too early to read it
-            by_stage = {s.stage_id: s for s in self._stage_stats}
+            by_stage = {s.stage_id: s for s in st.stage_stats}
             for fid, buf in buffers.items():
                 stage = by_stage.get(fid)
                 if stage is not None:
                     stage.exchange = getattr(buf, "stats", None)
             tree = QueryStatsTree(
-                stages=self._stage_stats,
-                wall_ms=(_time.perf_counter() - t0) * 1e3,
-                memory=self._memory_pool.stats())
+                stages=st.stage_stats,
+                wall_ms=(time.perf_counter() - t0) * 1e3,
+                memory=st.memory_pool.stats())
             if hbo_ctx is not None:
-                tree.estimates = self._hbo_estimates
+                tree.estimates = st.hbo_estimates
                 tree.worst_misestimate = (stats.get("hbo") or
                                           {}).get("worst")
             stats["query_stats"] = tree
-        self._memory_pool.close()  # reap spill files, free residue
+        st.memory_pool.close()  # reap spill files, free residue
         return QueryResult(names, types_, rows, stats=stats)
 
     def _plan_cache_key(self, stmt) -> Optional[tuple]:
@@ -387,31 +455,33 @@ class DistributedQueryRunner:
                 snap, self.n_workers, self.desired_splits,
                 self.broadcast_threshold)
 
-    def _hbo_record(self, hbo_ctx, root, stats) -> Optional[dict]:
+    def _hbo_record(self, st: _Statement, hbo_ctx, root,
+                    stats) -> Optional[dict]:
         """Fold this query's per-node actuals (summed across every
         stage's tasks) into the history store; stashes the estimate
         map for EXPLAIN ANALYZE's per-node Q-error rendering.  A
         material misestimate on a decision node (join input, grouped
         agg, or a DISTRIBUTION build side) drops cached fragment plans
         of the shape — the next run re-plans against history."""
-        op_stats = [o for s in self._stage_stats
+        op_stats = [o for s in st.stage_stats
                     for t in s.tasks for o in t.operators]
         est = hbo_ctx.estimates(root, self.metadata)
-        self._hbo_estimates = est[0]
+        st.hbo_estimates = est[0]
         scan_rows = sum(o.output_rows for o in op_stats
                         if o.name == "TableScanOperator")
         mem = stats.get("memory") or {}
         summary = hbo_ctx.record(root, self.metadata, op_stats,
                                  peak_bytes=mem.get("peak_bytes", 0),
                                  scan_rows=scan_rows, estimates=est)
-        shape = getattr(self, "_plan_shape", None)
+        shape = st.plan_shape
         if summary and summary["material"] and shape is not None:
             self.plan_cache.invalidate_shape(shape)
         return summary
 
     # ----------------------------------------------- streaming mode ----
 
-    def _execute_streaming(self, executor, fragments, root: OutputNode,
+    def _execute_streaming(self, st: _Statement, executor, fragments,
+                           root: OutputNode,
                            buffers: Dict[int, "OutputBuffer"]):
         """All stages run CONCURRENTLY: every fragment's tasks are
         submitted at once, exchange sources consume pages as producers
@@ -455,7 +525,7 @@ class DistributedQueryRunner:
             stage = StageStatsTree(frag.fragment_id, frag.partitioning,
                                    frag.output_kind)
             stages.append(stage)
-            stage_span = self._stage_span(frag)
+            stage_span = self._stage_span(st, frag)
             is_output = frag.output_kind == "output"
             if is_output:
                 results = [[] for _ in range(ntasks)]
@@ -479,7 +549,7 @@ class DistributedQueryRunner:
                             out.set_no_more_pages()
 
             for t in range(ntasks):
-                gen = self._task_gen(frag, ntasks, t, out, buffers,
+                gen = self._task_gen(st, frag, ntasks, t, out, buffers,
                                      stage, root if is_output else None,
                                      results if is_output else None,
                                      streaming=True, stage_span=stage_span)
@@ -487,10 +557,10 @@ class DistributedQueryRunner:
 
         self._wait_all(futures,
                        [b for b in buffers.values()])
-        if getattr(self, "_collect_stats", False):
+        if st.collect_stats:
             for stage in stages:
                 stage.tasks.sort(key=lambda t: t.task_id)
-                self._stage_stats.append(stage)
+                st.stage_stats.append(stage)
         return [p for r in results for p in r]
 
     def _wait_all(self, futures, bufs):
@@ -544,16 +614,16 @@ class DistributedQueryRunner:
 
         return reader
 
-    def _stage_span(self, frag: PlanFragment):
+    def _stage_span(self, st: _Statement, frag: PlanFragment):
         """The trace span of one fragment's stage (a no-op span when
         tracing is off)."""
-        return self._tracer.span(
-            f"stage f{frag.fragment_id}", parent=self._root_span,
+        return st.tracer.span(
+            f"stage f{frag.fragment_id}", parent=st.root_span,
             span_kind="stage", fragment=frag.fragment_id,
             partitioning=frag.partitioning, output=frag.output_kind)
 
-    def _task_gen(self, frag: PlanFragment, ntasks: int, t: int, out,
-                  buffers, stage, root: Optional[OutputNode],
+    def _task_gen(self, st: _Statement, frag: PlanFragment, ntasks: int,
+                  t: int, out, buffers, stage, root: Optional[OutputNode],
                   results: Optional[List[List[Page]]],
                   streaming: bool = False, stage_span=None):
         """One task of one fragment as a cooperative generator. ``out``
@@ -562,17 +632,22 @@ class DistributedQueryRunner:
         In streaming mode a no-progress quantum yields Blocked(tokens)
         so the executor parks the task. Its trace span (child of
         ``stage_span``) covers the task from its first quantum to its
-        end, its drivers' operator spans beneath it."""
-        with self._tracer.span(
+        end, its drivers' operator spans beneath it; the reads its
+        quanta make outside an operator's call are charged to it."""
+        reads = device_reads.Reads()
+        with st.tracer.span(
                 f"task f{frag.fragment_id}.{t}", parent=stage_span,
                 span_kind="task", fragment=frag.fragment_id,
                 task_id=t) as task_span:
-            yield from self._task_body(frag, ntasks, t, out, buffers,
-                                       stage, root, results, streaming,
-                                       task_span)
+            yield from device_reads.charged(
+                self._task_body(st, frag, ntasks, t, out, buffers, stage,
+                                root, results, streaming, task_span),
+                reads)
+            for key, value in span_counters(reads).items():
+                task_span.set(key, value)
 
-    def _task_body(self, frag: PlanFragment, ntasks: int, t: int, out,
-                   buffers, stage, root: Optional[OutputNode],
+    def _task_body(self, st: _Statement, frag: PlanFragment, ntasks: int,
+                   t: int, out, buffers, stage, root: Optional[OutputNode],
                    results: Optional[List[List[Page]]], streaming: bool,
                    task_span):
         from ..exec.driver import Driver
@@ -586,15 +661,15 @@ class DistributedQueryRunner:
             self.desired_splits, task_id=t,
             task_count=ntasks,
             exchange_reader=self._make_reader(buffers, t, streaming),
-            memory_pool=self._memory_pool,
+            memory_pool=st.memory_pool,
             join_max_lanes=SP.value(self.session,
                                     "join_max_expand_lanes"),
             dynamic_filtering=SP.value(
                 self.session, "enable_dynamic_filtering"),
             scan_coalesce=SP.value(self.session, "scan_coalesce_enabled"),
-            hbo=getattr(self, "_hbo", None),
+            hbo=st.hbo,
             **grouping_options(self.session.properties))
-        collect = getattr(self, "_collect_stats", False)
+        collect = st.collect_stats
         task = TaskStatsTree(t)
         if root is not None:
             plan = planner.plan(OutputNode(frag.root, root.column_names,
@@ -639,7 +714,7 @@ class DistributedQueryRunner:
             if collect:
                 d.collect_operator_metrics()
                 task.operators.extend(d.stats)
-                add_driver_spans(self._tracer, d, task_span)
+                add_driver_spans(st.tracer, d, task_span)
         if root is not None and results is not None:
             results[t] = plan.sink.pages
         if collect:
@@ -687,8 +762,8 @@ class DistributedQueryRunner:
             hot_split_threshold=SP.value(
                 self.session, "hot_partition_split_threshold"))
 
-    def _run_fragment(self, executor, frag: PlanFragment, ntasks: int,
-                      buffers: Dict[int, OutputBuffer]):
+    def _run_fragment(self, st: _Statement, executor, frag: PlanFragment,
+                      ntasks: int, buffers: Dict[int, OutputBuffer]):
         # consumer partition count: single -> 1, hash -> n_workers,
         # broadcast -> replicated
         device_ex = self._device_exchange_for(frag, ntasks)
@@ -708,30 +783,30 @@ class DistributedQueryRunner:
 
         stage = StageStatsTree(frag.fragment_id, frag.partitioning,
                                frag.output_kind)
-        with self._stage_span(frag) as stage_span:
+        with self._stage_span(st, frag) as stage_span:
             executor.run_all([
-                self._task_gen(frag, ntasks, t, out, buffers, stage, None,
-                               None, stage_span=stage_span)
+                self._task_gen(st, frag, ntasks, t, out, buffers, stage,
+                               None, None, stage_span=stage_span)
                 for t in range(ntasks)])
-        if getattr(self, "_collect_stats", False):
+        if st.collect_stats:
             stage.tasks.sort(key=lambda t: t.task_id)
-            self._stage_stats.append(stage)
+            st.stage_stats.append(stage)
         return out
 
-    def _run_output_fragment(self, executor, frag: PlanFragment,
-                             root: OutputNode, ntasks: int,
-                             buffers) -> List[Page]:
+    def _run_output_fragment(self, st: _Statement, executor,
+                             frag: PlanFragment, root: OutputNode,
+                             ntasks: int, buffers) -> List[Page]:
         from ..exec.stats import StageStatsTree
 
         results: List[List[Page]] = [[] for _ in range(ntasks)]
         stage = StageStatsTree(frag.fragment_id, frag.partitioning,
                                frag.output_kind)
-        with self._stage_span(frag) as stage_span:
+        with self._stage_span(st, frag) as stage_span:
             executor.run_all([
-                self._task_gen(frag, ntasks, t, None, buffers, stage, root,
-                               results, stage_span=stage_span)
+                self._task_gen(st, frag, ntasks, t, None, buffers, stage,
+                               root, results, stage_span=stage_span)
                 for t in range(ntasks)])
-        if getattr(self, "_collect_stats", False):
+        if st.collect_stats:
             stage.tasks.sort(key=lambda t: t.task_id)
-            self._stage_stats.append(stage)
+            st.stage_stats.append(stage)
         return [p for r in results for p in r]

@@ -45,6 +45,7 @@ from ..ops.global_hash_agg import (EMPTY, global_hash_insert,
 from ..ops.kernel_sizing import KERNEL_SIZING
 from ..ops.sortkeys import group_operands
 from ..telemetry.profiler import instrument
+from ..telemetry.device_reads import host_scalar, to_host
 from .exchange import (hash_partition_ids, partition_histogram,
                        repartition_a2a, subbucket_ids)
 
@@ -326,8 +327,8 @@ def run_q1_mesh(devices: Sequence, schema: str = "micro",
                            q1_stage1_fn(devices, proc, step),
                            key=("stage1", devs, tsig)))
     kr, kn, states, pvalid, part, hist, need = s1(cols, nulls, valid, luts)
-    part_rows = hist.cpu().numpy()
-    exact_need = int(need)
+    part_rows = to_host(hist, "mesh_query.count")
+    exact_need = int(host_scalar(need, "mesh_query.count"))
     sizing = "exact" if per_dest is None else "legacy"
     if per_dest is None:
         per_dest = padded_size(max(exact_need, 16))
@@ -377,7 +378,7 @@ def run_q1_mesh(devices: Sequence, schema: str = "micro",
                 key=("global_hash", devs, tsig, table_size)))
         out_cols, out_nulls, out_valid, unresolved = fn(
             kr, kn, states, pvalid)
-        n_unresolved = int(unresolved)
+        n_unresolved = int(host_scalar(unresolved, "mesh_query.unresolved"))
         if n_unresolved:
             # probe budget exhausted (adversarial collisions): the
             # exchange path is the exact fallback
@@ -416,7 +417,8 @@ def run_q1_mesh(devices: Sequence, schema: str = "micro",
             out_cols, out_nulls, out_valid, overflow = fn(
                 kr, kn, states, pvalid, part, hot_mask)
             collectives += 1
-            if sum(int(o) for o in overflow) == 0:
+            if sum(int(host_scalar(o, "mesh_query.overflow"))
+                   for o in overflow) == 0:
                 break
             per_dest *= 2
             retries += 1
@@ -446,13 +448,14 @@ def run_q1_mesh(devices: Sequence, schema: str = "micro",
     # assemble the distributed result: compact valid lanes per slab
     out_types = list(proc.output_types[:2]) + [a.output_type for a in aggs]
     out_dicts = dicts[:2] + [None] * len(aggs)
-    ov = np.concatenate([v.cpu().numpy() for v in out_valid])
+    ov = np.concatenate([to_host(v, "mesh_query.results")
+                         for v in out_valid])
     keep = np.nonzero(ov)[0]
     blocks: List[Block] = []
     for c, (t, d) in enumerate(zip(out_types, out_dicts)):
-        data = np.concatenate([slab[c].cpu().numpy()
+        data = np.concatenate([to_host(slab[c], "mesh_query.results")
                                for slab in out_cols])[keep]
-        nl = np.concatenate([slab[c].cpu().numpy()
+        nl = np.concatenate([to_host(slab[c], "mesh_query.results")
                              for slab in out_nulls])[keep]
         blocks.append(Block(t, data, nl if nl.any() else None, d))
     rows = Page(blocks, len(keep)).to_rows()

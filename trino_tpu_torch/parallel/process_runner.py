@@ -1544,8 +1544,8 @@ class ProcessQueryRunner:
             desired_splits=self.desired_splits,
             broadcast_threshold=self.broadcast_threshold,
             device=self.device)
-        fragments = planning.create_fragments(stmt, hbo=hbo)
-        return fragments, planning._root
+        root, fragments = planning.plan_fragments(stmt, hbo=hbo)
+        return fragments, root
 
     def _execute_once(self, stmt, qid: str, ctx: _QueryCtx) -> QueryResult:
         with ctx.tracer.span(f"execute {qid}", parent=ctx.root_span,

@@ -5,7 +5,7 @@ The JAX engine's ``trino_tpu/telemetry/`` modules of the same names:
 
 - ``tracing``: Tracer/Span core with W3C-traceparent-style dict
   context, Chrome-trace-event export (Perfetto-loadable), span-timeline
-  analysis (critical path, stage overlap) and the slow-query record;
+  analysis (critical path) and the slow-query record;
 - ``metrics``: process-local counter/gauge/histogram registry with
   Prometheus text exposition;
 - ``profiler``: per-program calls, device time (CUDA events on the
@@ -13,17 +13,19 @@ The JAX engine's ``trino_tpu/telemetry/`` modules of the same names:
 - ``stats_store``: per-plan-node actuals fed back into the cost model;
 - ``connectors/system.py`` (outside this package) serves them as the
   ``system.runtime`` tables.
+
+The port's own ``device_reads``: the one door for the host's reads of
+device tensors, and the counters each read is charged to.
 """
 
 from .metrics import (ClusterMetrics, MetricsRegistry, merge_families,
                       process_families, relabel, render_prometheus)
 from .tracing import (NULL_TRACER, Span, Tracer, critical_path,
-                      span_tree, stage_overlap, to_chrome_trace,
-                      trace_line)
+                      span_tree, to_chrome_trace, trace_line)
 
 __all__ = [
     "ClusterMetrics", "MetricsRegistry", "merge_families",
     "process_families", "relabel", "render_prometheus",
     "NULL_TRACER", "Span", "Tracer", "critical_path", "span_tree",
-    "stage_overlap", "to_chrome_trace", "trace_line",
+    "to_chrome_trace", "trace_line",
 ]

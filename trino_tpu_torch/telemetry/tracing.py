@@ -13,9 +13,12 @@ Cost model: tracing must be zero-cost when off — ``NULL_TRACER.span()``
 returns a shared no-op span, and spans are only opened at host-side
 boundaries, never around single device calls.
 
-Clock model: span ``start`` is epoch seconds (``time.time()`` — the only
-clock that aligns across processes on one host) and duration is measured
-on ``perf_counter`` so short spans keep sub-ms resolution.
+Clock model: every time is read on ``perf_counter_ns`` and placed on the
+epoch clock (the only clock that aligns across processes on one host,
+and the one a ``torch.profiler`` trace is exported on) through one
+anchor per process, ``ANCHOR_NS``, read once: spans, the drivers'
+operator stamps and the device reads' intervals
+(``telemetry.device_reads``) share it, so they lie on one clock.
 
 The JAX engine's ``trino_tpu/telemetry/tracing.py``, copied. Its span
 producers in the torch engine: the one-card ``DistributedQueryRunner``
@@ -29,6 +32,18 @@ from __future__ import annotations
 import os
 import time
 from typing import Dict, Iterable, List, Optional, Tuple
+
+
+#: (epoch ns, perf_counter ns), read together once per process
+ANCHOR_NS = (time.time_ns(), time.perf_counter_ns())
+#: the same anchor as (epoch seconds, perf_counter ns): the drivers'
+#: ``epoch_anchor``
+EPOCH_ANCHOR = (ANCHOR_NS[0] / 1e9, ANCHOR_NS[1])
+
+
+def epoch_s(pc_ns: int) -> float:
+    """A ``perf_counter_ns`` reading as epoch seconds."""
+    return (ANCHOR_NS[0] + pc_ns - ANCHOR_NS[1]) / 1e9
 
 
 def _new_id(nbytes: int = 8) -> str:
@@ -50,8 +65,8 @@ class Span:
         self.parent_id = parent_id
         self.name = name
         self.process = tracer.process
-        self.start = time.time()
-        self._pc0 = time.perf_counter()
+        self._pc0 = time.perf_counter_ns()
+        self.start = epoch_s(self._pc0)
         self.end: Optional[float] = None
         self.attrs = attrs
 
@@ -71,7 +86,7 @@ class Span:
 
     def finish(self):
         if self.end is None:
-            self.end = self.start + (time.perf_counter() - self._pc0)
+            self.end = epoch_s(time.perf_counter_ns())
             self.tracer._record(self.to_dict())
 
     def to_dict(self) -> dict:
@@ -185,7 +200,12 @@ def add_driver_spans(tracer: Tracer, driver, parent) -> int:
     """Emit one span per operator of a finished Driver from its
     collected stats (the driver records first/last activity timestamps;
     span duration is the operator's BUSY wall so operator spans of one
-    task sum to ~the task's execution wall). Returns spans emitted."""
+    task sum to ~the task's execution wall). Where nonzero, a span also
+    carries its operator's device reads (``d2h_reads``, ``d2h_bytes``,
+    ``d2h_wait_ms``) and thread CPU (``cpu_ms``), and, for what ran
+    while a torch.profiler session recorded, ``calls`` (each call's
+    ``[start, end]``) and ``reads`` (each read's ``[start, end, site,
+    bytes]``) in epoch seconds. Returns spans emitted."""
     if not tracer.enabled or not getattr(driver, "collect_stats", False):
         return 0
     anchor = getattr(driver, "epoch_anchor", None)
@@ -230,9 +250,32 @@ def add_driver_spans(tracer: Tracer, driver, parent) -> int:
                         "source_fragment"):
                 if st.metrics.get(key) is not None:
                     span["attrs"][f"exchange_{key}"] = st.metrics[key]
+        span["attrs"].update(span_counters(st))
+        cpu_ns = getattr(st, "cpu_ns", 0)
+        if cpu_ns:
+            span["attrs"]["cpu_ms"] = round(cpu_ns / 1e6, 3)
+        calls = getattr(st, "call_spans", None)
+        if calls:
+            span["attrs"]["calls"] = [[epoch_s(a), epoch_s(b)]
+                                      for a, b in calls]
         tracer._record(span)
         n += 1
     return n
+
+
+def span_counters(target) -> dict:
+    """A charge target's device reads (``device_reads.Reads`` or an
+    ``OperatorStats``) as span attributes: the counters where nonzero,
+    and ``reads`` where the target kept intervals."""
+    n = getattr(target, "d2h_reads", 0)
+    if not n:
+        return {}
+    out = {"d2h_reads": n, "d2h_bytes": target.d2h_bytes,
+           "d2h_wait_ms": round(target.d2h_wait_ns / 1e6, 3)}
+    if target.read_spans:
+        out["reads"] = [[epoch_s(a), epoch_s(b), site, nbytes]
+                        for a, b, site, nbytes in target.read_spans]
+    return out
 
 
 # -- tree assembly + analysis ---------------------------------------------
@@ -262,7 +305,10 @@ def span_tree(spans: List[dict]) -> Tuple[List[dict],
 
 def critical_path(spans: List[dict]) -> List[dict]:
     """Root-to-leaf chain following, at each level, the child whose end
-    time is latest — the spans that bound the query's wall clock."""
+    time is latest — the spans that bound the query's execution. The
+    coordinator's statement spans (``span_kind`` ``statement``: parse,
+    plan, results, history) bracket the execution and are passed over
+    where a span has other children."""
     roots, children, _ = span_tree(spans)
     if not roots:
         return []
@@ -271,6 +317,8 @@ def critical_path(spans: List[dict]) -> List[dict]:
         kids = children.get(path[-1]["span_id"])
         if not kids:
             return path
+        kids = [k for k in kids if k.get("attrs", {}).get("span_kind")
+                != "statement"] or kids
         path.append(max(kids, key=lambda s: s["end"]))
 
 
@@ -333,39 +381,6 @@ def slow_query_record(spans: Optional[List[dict]], wall_ms: float,
              "compile_ms": s["attrs"].get("compile_ms", 0.0)}
             for s in ops[:3]]
     return record
-
-
-def stage_overlap(spans: List[dict]) -> float:
-    """Fraction of busy task time during which tasks of >= 2 DIFFERENT
-    fragments ran concurrently — the streaming-pipeline metric (a
-    barrier execution scores ~0; a fully pipelined one approaches 1).
-    Computed over worker task-execution spans (span_kind=task)."""
-    tasks = [s for s in spans
-             if s.get("attrs", {}).get("span_kind") == "task"
-             and s.get("attrs", {}).get("fragment") is not None]
-    if len(tasks) < 2:
-        return 0.0
-    events = []
-    for s in tasks:
-        frag = s["attrs"]["fragment"]
-        events.append((s["start"], 1, frag))
-        events.append((s["end"], -1, frag))
-    events.sort(key=lambda e: (e[0], -e[1]))
-    active: Dict[object, int] = {}
-    busy = overlap = 0.0
-    prev = events[0][0]
-    for t, delta, frag in events:
-        if active:
-            busy += t - prev
-            if len(active) >= 2:
-                overlap += t - prev
-        prev = t
-        cnt = active.get(frag, 0) + delta
-        if cnt <= 0:
-            active.pop(frag, None)
-        else:
-            active[frag] = cnt
-    return overlap / busy if busy > 0 else 0.0
 
 
 # -- Chrome trace-event export --------------------------------------------
