@@ -2,25 +2,25 @@
 into the engine's memory connector, and handed as the same arrays to the
 plain reference.
 
-A configuration file (``configs/<name>.json``) names, for each TPC-H
-table, the columns it holds and their SQL types; a table with no columns
-is not generated. Pages follow what a scan of the port's TPC-H connector
-would write into a memory table: ``desired_splits`` splits over the
-table's source rows (orders, for lineitem), each read ``page_rows``
-source rows at a time.
+A configuration file (``configs/<name>.json``) names its schema
+(``"schema"``, default ``"tpch"``) and, for each table of it, the
+columns it holds and their SQL types; a table with no columns is not
+generated. The schema's generator is the module ``<schema>gen`` of this
+package: ``TABLES`` (the load order), ``source_rows(table, sf)``,
+``generate(table, sf, columns, seed)`` (an ndarray per column, a
+``numpy.ma.MaskedArray`` where it has nulls, ``(codes, pool)`` for a
+string column) and ``page_bounds(table, sf, seed, desired_splits,
+page_rows)``: the pages a scan of the port's connector of that schema
+would write into a memory table.
 """
 
 from __future__ import annotations
 
+import importlib
 from dataclasses import dataclass, field
 from typing import Dict, List, Tuple
 
 import numpy as np
-
-from . import tpchgen
-
-TABLES = ("region", "nation", "supplier", "customer", "part", "partsupp",
-          "orders", "lineitem")
 
 
 @dataclass
@@ -28,7 +28,8 @@ class Table:
     name: str
     #: (column, SQL type) in the table's order
     columns: List[Tuple[str, str]]
-    #: column -> ndarray, or (codes, pool) for a string column
+    #: column -> ndarray (masked where it has nulls), or (codes, pool)
+    #: for a string column
     arrays: Dict[str, object]
     #: (first row, end row) of each page
     pages: List[Tuple[int, int]]
@@ -41,23 +42,26 @@ class Database:
     tables: Dict[str, Table] = field(default_factory=dict)
 
 
+def generator(config: dict):
+    """The generator module of the configuration's schema."""
+    return importlib.import_module(
+        f".{config.get('schema', 'tpch')}gen", __package__)
+
+
 def generate(config: dict, seed: int, sf: float = None) -> Database:
     """Every column the configuration lists, from ``seed``; ``sf``
     overrides the configuration's scale (tests run at a small one)."""
     sf = float(config["scale_factor"]) if sf is None else sf
+    gen = generator(config)
     db = Database(sf=sf, seed=seed)
-    for name in TABLES:
+    for name in gen.TABLES:
         columns = list(config.get(name, {}).items())
         if not columns:
             continue
-        arrays = tpchgen.generate(name, sf, [c for c, _ in columns], seed)
-        bounds = tpchgen.split_pages(tpchgen.source_rows(name, sf),
-                                     int(config["desired_splits"]),
-                                     int(config["page_rows"]))
-        if name == "lineitem":
-            ends = np.concatenate(
-                [[0], np.cumsum(tpchgen.line_counts(sf, seed))])
-            bounds = [(int(ends[a]), int(ends[b])) for a, b in bounds]
+        arrays = gen.generate(name, sf, [c for c, _ in columns], seed)
+        bounds = gen.page_bounds(name, sf, seed,
+                                 int(config["desired_splits"]),
+                                 int(config["page_rows"]))
         db.tables[name] = Table(name, columns, arrays, bounds)
     return db
 
@@ -94,7 +98,9 @@ def load_memory(db: Database, connector) -> None:
                 if t.is_string:
                     blocks.append(Block(t, v[0][lo:hi], None, pools[c]))
                 else:
-                    blocks.append(Block(t, np.asarray(v[lo:hi],
-                                                      dtype=t.storage)))
+                    nulls = np.ma.getmask(v)
+                    blocks.append(Block(
+                        t, np.asarray(v[lo:hi], dtype=t.storage),
+                        None if nulls is np.ma.nomask else nulls[lo:hi]))
             sink.append_page(Page(blocks, hi - lo))
         sink.finish()

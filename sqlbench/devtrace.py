@@ -159,6 +159,18 @@ class Recorder:
                                f"streams {sorted(self.exclude)}")
         return self.exclude
 
+    def warm_alone(self) -> None:
+        """A short profile of one op in set-up, for a run with no side
+        stream: the profiler's first start stays out of the window."""
+        import torch
+
+        torch.cuda.synchronize()
+        self.start()
+        torch.ones(1, device="cuda").add_(1)
+        self.close()
+        self.stop()
+        self.read()
+
     def start(self):
         from torch.profiler import ProfilerActivity, profile
 

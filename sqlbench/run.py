@@ -3,17 +3,20 @@
     python3 sqlbench/run.py --workload <name> --seed <n> --seconds <s> \
         --trace <0|1>
 
-From the root of a checkout: generates the cell's configuration's TPC-H
-tables from the seed, loads them into the port's memory connector,
-starts the configuration's runner behind the port's statement server,
-warms every template up through it, then lets the traffic's streams (a
-child process) send statements for ``--seconds``. Once the window has
-closed it holds every statement's rows against the plain NumPy
-reference and prints one JSON line: ``correct``, ``attempted``,
-``failed``, ``metrics`` (the cell's end-to-end metrics, or with
-``--trace 1`` its per-layer metrics), ``device``, with ``--trace 1``
-``breakdown``, and last ``checks``: each number compared with its
-limit, which also end standard error.
+From the root of a checkout: generates the cell's configuration's
+tables from the seed (its schema's generator, ``data.generator``), loads
+them into the port's memory connector, starts the configuration's runner
+behind the port's statement server, warms every template up through it,
+then lets the traffic's streams (a child process) send statements for
+``--seconds``. Once the window has closed it holds every statement's
+rows against the plain NumPy reference and prints one JSON line:
+``correct``, ``attempted``, ``failed``, ``metrics`` (the cell's
+end-to-end metrics, or with ``--trace 1`` its per-layer metrics),
+``device``, with ``--trace 1`` ``breakdown``, and last ``checks``: each
+number compared with its limit, which also end standard error. Where an
+end-to-end metric is read from the device's trace, an untraced run
+records the device (``torch.profiler``, its activity only) over the
+whole window.
 
 Everything a cell is made of is found by name from ``BENCHMARK.json``:
 ``configs/``, ``traffic/``, ``queries/``, ``reference/`` and
@@ -176,6 +179,20 @@ def run_cell(workload_name: str, seed: int, seconds: float, trace: bool,
             print(f"sqlbench: the side stream is {sorted(side)}",
                   file=sys.stderr)
         log.mark("instrument")
+    card = None
+    card_warm_s = 0.0
+    if cuda and not trace and any(m["source"] == "device_trace" for m in
+                                  cell_metrics(bench, cell, False)):
+        from sqlbench import devtrace
+
+        # an end-to-end metric of the device: the device is recorded over
+        # the whole window
+        card = devtrace.Recorder(
+            os.path.join(OUT_DIR, f"{workload_name}.window.trace.json"))
+        t_warm = time.time()
+        card.warm_alone()
+        card_warm_s = time.time() - t_warm
+        log.mark("instrument")
     server = system.serve(served)
     plan = workload.plan(traffic, seed)
     streams = Streams(server.uri, plan)
@@ -193,7 +210,10 @@ def run_cell(workload_name: str, seed: int, seconds: float, trace: bool,
         gc.collect()
         gc.freeze()
         log.mark("warm-up")
-        setup_s = time.time() - T_START
+        # the benchmark's own profiler is no part of the system's set-up
+        setup_s = time.time() - T_START - card_warm_s
+        if card is not None:
+            card.start()
         streams.send({"go": seconds})
         t_go = time.time()
         if recorder is not None:
@@ -209,6 +229,14 @@ def run_cell(workload_name: str, seed: int, seconds: float, trace: bool,
             recorder.close()
         done = streams.receive(seconds + DRAIN_S)
         log.mark("window")
+        if card is not None:
+            card.close()
+            card.stop()
+            dtrace = card.read()
+            os.remove(card.path)
+            print(f"sqlbench: device trace of the window, {dtrace.window_s:.3f}"
+                  f" s, {len(dtrace.ops)} device ops", file=sys.stderr)
+            log.mark("device trace")
         if recorder is not None:
             t_ask = time.time()
             recorder.stop()
@@ -263,7 +291,7 @@ def run_cell(workload_name: str, seed: int, seconds: float, trace: bool,
     line = {"correct": bool(correct), "attempted": len(done["records"]),
             "failed": numbers["failed"] + numbers["unanswered"],
             "metrics": metrics, "device": dev}
-    if dtrace is not None:
+    if recorder is not None:
         dev["busy_s"] = dtrace.busy_s()
         dev["window_s"] = dtrace.window_s
         line["breakdown"] = breakdown(dtrace, run, timed)

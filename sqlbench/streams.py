@@ -15,8 +15,9 @@ out.
 
 Protocol with the parent, one JSON document per line: the parent writes
 the plan (``workload.plan``) on stdin; the child runs every stream's
-warm-up, writes ``{"ready": true, "warmup": [...]}``; the parent writes
-``{"go": seconds}``; the child runs the window and writes
+warm-up, one stream after another, and writes ``{"ready": true,
+"warmup": [...]}``; the parent writes ``{"go": seconds}``; the child
+runs the window, the streams at once, and writes
 ``{"records": [...]}``. Statements started before the window closed are
 waited for. Standard library only, so the client's Python never shares
 the engine's lock.
@@ -126,21 +127,22 @@ def warm_template(client: Client, stmts: list, least: int) -> list:
 
 
 def run_streams(url: str, plan: dict, phase: str, until: float = None):
-    """Each stream's statements of ``phase`` ("warmup": each template's
-    until its plan settles; "window": in order while
-    ``time.time() < until``), the streams in threads started together.
-    Returns every statement's record."""
+    """Each stream's statements of ``phase``. "warmup": each template's
+    until its plan settles, one stream after another, so that no
+    statement of the warm-up runs beside another. "window": in order
+    while ``time.time() < until``, the streams in threads started
+    together. Returns every statement's record."""
+    if phase == "warmup":
+        return [r for s in plan["streams"] for stmts in s[phase]
+                for r in warm_template(Client(url, s["user"],
+                                              plan["poll_s"]),
+                                       stmts, plan["warmup_least"])]
     out = [[] for _ in plan["streams"]]
     start = threading.Barrier(len(plan["streams"]))
 
     def stream(i, s):
         client = Client(url, s["user"], plan["poll_s"])
         start.wait()
-        if phase == "warmup":
-            for stmts in s[phase]:
-                out[i].extend(warm_template(client, stmts,
-                                            plan["warmup_least"]))
-            return
         for stmt in s[phase]:
             if until is not None and time.time() >= until:
                 break

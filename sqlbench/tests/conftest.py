@@ -38,10 +38,11 @@ def cpu_runner(config, db):
     return system.make_runner(config, db, "cpu")
 
 
-def with_agg_cell() -> dict:
-    """``BENCHMARK.json`` with the single-node cell added (its files are
-    under ``sqlbench/``; the cell waits for history to settle, see
-    PERF.md §7), so the CPU tests cover the local runner's path too."""
+def with_staged_cells() -> dict:
+    """``BENCHMARK.json`` with the cell whose files are staged under
+    ``sqlbench/`` added: the single-node cell (it waits for history to
+    settle; PERF.md §7), so the CPU tests cover the local runner's path
+    too."""
     import json
 
     with open(os.path.join(ROOT, "BENCHMARK.json")) as f:
@@ -52,3 +53,21 @@ def with_agg_cell() -> dict:
                                "config": "tpch_sf1_single",
                                "traffic": "agg", "chips": 1})
     return bench
+
+
+def tpcds_config(sf: float = 0.001, **over) -> dict:
+    """A TPC-DS configuration of every table and column of the port's
+    TPC-DS connector, with its types, on the four-worker runner, its
+    schema served by ``porttpcdsgen`` (no configuration file has a
+    second schema yet)."""
+    from trino_tpu_torch.connectors.tpcds import _TABLE_COLUMNS
+
+    cfg = {"schema": "tests.porttpcds", "scale_factor": sf,
+           "page_rows": 4096,
+           "desired_splits": 8,
+           "runner": {"kind": "distributed", "n_workers": 4},
+           "session": {}}
+    for table, columns in _TABLE_COLUMNS.items():
+        cfg[table] = {c: str(t) for c, t in columns}
+    cfg.update(over)
+    return cfg

@@ -148,9 +148,33 @@ def test_end_to_end_readers():
     run = readers.Run(seconds=10.0, window=(0.0, 10.0), records=recs,
                       setup_s=3.0)
     assert readers.load("queries_per_s").read(run) == pytest.approx(0.2)
-    assert readers.load("geomean_ms").read(run) == pytest.approx(100.0)
+    assert readers.load("serving.geomean_ms").read(run) == pytest.approx(100.0)
     # three latencies 10, 100, 1000: rank 1.5 lies between 100 and 1000
     assert readers.load("p75_ms").read(run) == pytest.approx(
         100 + 0.5 * 900)
     assert readers.load("setup_s").read(run) == 3.0
     assert math.isfinite(readers.load("p75_ms").read(run))
+
+
+def test_device_ms_leaves_host_copies_out():
+    t0 = 5.0
+    ops = [devtrace.DeviceOp("tile_kernel", "kernel", 7, 0.10, 0.30),
+           devtrace.DeviceOp("grid_kernel", "kernel", 8, 0.20, 0.40),
+           devtrace.DeviceOp("Memset (Device)", "gpu_memset", 7, 0.50,
+                             0.60),
+           devtrace.DeviceOp("Memcpy DtoD (Device -> Device)",
+                             "gpu_memcpy", 7, 0.60, 0.70),
+           devtrace.DeviceOp("Memcpy DtoH (Device -> Pageable)",
+                             "gpu_memcpy", 7, 0.70, 1.50),
+           devtrace.DeviceOp("Memcpy HtoD (Pageable -> Device)",
+                             "gpu_memcpy", 7, 1.50, 1.90)]
+    t = devtrace.DeviceTrace(t0, t0 + 2.0, ops)
+    records = [{"t_post": t0, "t_done": t0 + 1.0, "latency_ms": 1e3},
+               {"t_post": t0 + 1.0, "t_done": t0 + 2.0, "latency_ms": 1e3}]
+    run = _run(t, [], records)
+    # [0.1, 0.4] + [0.5, 0.7] = 0.5 s of the device's own work, two
+    # statements
+    assert readers.load("device_ms").read(run) == pytest.approx(250.0)
+    assert readers.load("device_ms").read(_run(
+        devtrace.DeviceTrace(t0, t0 + 2.0, ops[4:]), [], records)) is None
+

@@ -2,6 +2,7 @@
 characters, every cell's files are found, and every ``moves`` names an
 end-to-end metric that each of the metric's cells reports."""
 
+import glob
 import json
 import os
 import re
@@ -118,15 +119,26 @@ def test_moves_names_a_metric_its_cells_report(bench):
     assert all(len(v) == 1 for v in layers.values())
 
 
-@pytest.mark.parametrize("name", ["tpch_sf1_cluster4", "tpch_sf1_single"])
+CONFIGS = sorted(os.path.basename(p)[:-5] for p in glob.glob(
+    os.path.join(ROOT, "sqlbench", "configs", "*.json")))
+
+
+@pytest.mark.parametrize("name", CONFIGS)
 def test_configuration_holds_every_tpch_table_and_column(name):
-    """A configuration keeps TPC-H's widths: every table and every column
-    of the port's TPC-H schema, with its type, in the schema's order."""
-    from sqlbench import workload
-    from trino_tpu_torch.connectors.tpch import _TABLE_COLUMNS
+    """A configuration keeps its schema's widths: every table and every
+    column of the port's connector of its schema (``"schema"``, TPC-H
+    by default), with its type, in the schema's order, and its schema
+    has a generator of every one of those tables."""
+    import importlib
+
+    from sqlbench import data, workload
 
     cfg = workload.read_json(os.path.join(ROOT, "sqlbench", "configs",
                                           f"{name}.json"))
-    for table, columns in _TABLE_COLUMNS.items():
+    schema = cfg.get("schema", "tpch")
+    port = importlib.import_module(f"trino_tpu_torch.connectors.{schema}")
+    assert set(data.generator(cfg).TABLES) == set(port._TABLE_COLUMNS)
+    for table, columns in port._TABLE_COLUMNS.items():
         assert list(cfg[table].items()) == \
             [(c, str(t)) for c, t in columns], table
+

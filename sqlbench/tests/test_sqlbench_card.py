@@ -14,7 +14,8 @@ from sqlbench.tests.conftest import ROOT
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("trace", [0, 1])
-@pytest.mark.parametrize("workload", ["tpch_sf1_cluster4.exchange"])
+@pytest.mark.parametrize("workload", ["tpch_sf1_cluster4.exchange",
+                                      "tpch_sf1_cluster4.exchange2"])
 def test_short_run_on_the_card(workload, trace):
     import torch
 

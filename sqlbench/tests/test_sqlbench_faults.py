@@ -10,7 +10,7 @@ the cluster) one producer's pages left out of the exchange."""
 import pytest
 
 from sqlbench import run
-from sqlbench.tests.conftest import SEED, SF, with_agg_cell
+from sqlbench.tests.conftest import SEED, SF, with_staged_cells
 
 
 class _Broken:
@@ -52,12 +52,13 @@ def _run(workload, wrap=None):
     line, numbers, _, _ = run.run_cell(workload, SEED, 3.0, False,
                                        device="cpu", sf=SF,
                                        wrap_runner=wrap,
-                                       bench=with_agg_cell())
+                                       bench=with_staged_cells())
     return line, numbers
 
 
 @pytest.mark.parametrize("workload", ["tpch_sf1_single.agg",
-                                      "tpch_sf1_cluster4.exchange"])
+                                      "tpch_sf1_cluster4.exchange",
+                                      "tpch_sf1_cluster4.exchange2"])
 def test_sound_run_is_correct(workload):
     line, numbers = _run(workload)
     assert line["correct"] and numbers["compared"] >= 2
@@ -66,14 +67,17 @@ def test_sound_run_is_correct(workload):
 
 @pytest.mark.parametrize("fault", [_alter_one_value, _drop_half])
 @pytest.mark.parametrize("workload", ["tpch_sf1_single.agg",
-                                      "tpch_sf1_cluster4.exchange"])
+                                      "tpch_sf1_cluster4.exchange",
+                                      "tpch_sf1_cluster4.exchange2"])
 def test_broken_answer_is_not_correct(workload, fault):
     line, numbers = _run(workload, lambda r: _Broken(r, fault))
     assert not line["correct"]
     assert numbers["mismatched"] >= 1
 
 
-def test_exchange_left_out_is_not_correct(monkeypatch):
+@pytest.mark.parametrize("workload", ["tpch_sf1_cluster4.exchange",
+                                      "tpch_sf1_cluster4.exchange2"])
+def test_exchange_left_out_is_not_correct(monkeypatch, workload):
     from trino_tpu_torch.parallel import device_exchange
 
     used = []
@@ -86,7 +90,7 @@ def test_exchange_left_out_is_not_correct(monkeypatch):
 
     monkeypatch.setattr(device_exchange.DeviceExchange, "add_page",
                         drop_task0)
-    line, numbers = _run("tpch_sf1_cluster4.exchange")
+    line, numbers = _run(workload)
     assert used and not line["correct"]
     assert numbers["mismatched"] >= 1
 

@@ -1,10 +1,14 @@
 """The frozen generator with seed 0 reproduces the port's TPC-H
-generator, and another seed gives another database of the same shape."""
+generator, and another seed gives another database of the same shape;
+each schema's pages cover its rows."""
+
+import os
 
 import numpy as np
 import pytest
 
 from sqlbench import tpchgen
+from sqlbench.tests.conftest import ROOT, tpcds_config
 
 COLUMNS = {
     "lineitem": ["l_orderkey", "l_partkey", "l_suppkey", "l_linenumber",
@@ -93,3 +97,32 @@ def test_split_pages_cover_every_row_once():
     rows = np.concatenate([np.arange(a, b) for a, b in pages])
     np.testing.assert_array_equal(rows, np.arange(150_000))
     assert max(b - a for a, b in pages) <= 65536
+
+
+@pytest.mark.parametrize("schema", ["tpch", "tpcds"])
+def test_page_bounds_cover_every_row_once(schema):
+    """Through ``data.generate``: each table's pages, in order, cover
+    its generated rows once, none longer than ``page_rows`` source rows
+    (a lineitem page holds the lines of at most that many orders)."""
+    from sqlbench import data, workload
+
+    if schema == "tpch":
+        cfg = workload.read_json(os.path.join(
+            ROOT, "sqlbench", "configs", "tpch_sf1_cluster4.json"))
+        cfg = dict(cfg, page_rows=1000)
+    else:
+        cfg = tpcds_config(page_rows=1000)
+    db = data.generate(cfg, 2 ** 31 + 5 if schema == "tpch" else 0, 0.001)
+    gen = data.generator(cfg)
+    assert list(db.tables) == list(gen.TABLES)
+    for name, table in db.tables.items():
+        first = table.arrays[table.columns[0][0]]
+        n = len(first[0] if isinstance(first, tuple) else first)
+        rows = np.concatenate([np.arange(a, b) for a, b in table.pages])
+        np.testing.assert_array_equal(rows, np.arange(n), name)
+        assert all(b > a for a, b in table.pages), name
+        if name != "lineitem":
+            assert max(b - a for a, b in table.pages) <= 1000, name
+    if schema == "tpch":
+        assert len(db.tables["lineitem"].pages) == \
+            len(db.tables["orders"].pages)

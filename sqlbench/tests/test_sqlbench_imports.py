@@ -8,6 +8,8 @@ import os
 import subprocess
 import sys
 
+import pytest
+
 from sqlbench.tests.conftest import ROOT
 
 FORBIDDEN = {"jax", "jaxlib", "flax", "trino_tpu"}
@@ -50,6 +52,19 @@ def test_references_import_no_engine():
             top = name.split(".")[0]
             assert top not in FORBIDDEN | {"trino_tpu_torch", "torch"}, \
                 (path, name)
+
+
+GENERATORS = sorted(os.path.basename(p)[:-3] for p in glob.glob(
+    os.path.join(ROOT, "sqlbench", "*gen.py")))
+
+
+@pytest.mark.parametrize("module", GENERATORS)
+def test_generators_import_no_engine(module):
+    """A schema's generator is plain NumPy: the benchmark's data never
+    moves with the port's connectors."""
+    for name in _imports(os.path.join(ROOT, "sqlbench", f"{module}.py")):
+        assert name.split(".")[0] not in \
+            FORBIDDEN | {"trino_tpu_torch", "torch"}, (module, name)
 
 
 def test_harness_imports_no_jax():

@@ -1,5 +1,6 @@
 """The qgen draws repeat for a seed, stay within TPC-H clause 2.4's
-ranges, and every stream's statements follow from the seed alone."""
+ranges (a ``list`` draw within its values, distinct), and every
+stream's statements follow from the seed alone."""
 
 import datetime
 
@@ -38,7 +39,7 @@ def test_draws_repeat_and_stay_in_range(name):
         assert len(seen[k]) == len(allowed), (name, k, "not all drawn")
 
 
-@pytest.mark.parametrize("traffic", ["agg", "exchange"])
+@pytest.mark.parametrize("traffic", ["agg", "exchange", "exchange2"])
 def test_plan_follows_the_seed(traffic):
     t = workload.load_traffic(traffic)
     seed = 2 ** 31 + 99
@@ -66,3 +67,22 @@ def test_plan_follows_the_seed(traffic):
                 w["params"]) == w["sql"]
     firsts = [s["window"][0]["template"] for s in p1["streams"]]
     assert len(set(firsts)) == min(len(firsts), len(t["templates"]))
+
+
+def test_list_draws_k_distinct_values_and_repeats():
+    """dsqgen's ``ulist``: ``k`` distinct values of the list, the same
+    for the same seed, rendered as literals for ``IN (...)``."""
+    states = ["AL", "CA", "GA", "IA", "IL", "KS", "MI", "MN", "O'K"]
+    t = workload.Template("t", "select 1 where s in ({STATES})",
+                          {"STATES": {"kind": "list", "values": states,
+                                      "k": 3}})
+    rng1, rng2 = np.random.default_rng([9, 1]), np.random.default_rng([9, 1])
+    a = [t.draw(rng1)["STATES"] for _ in range(500)]
+    assert a == [t.draw(rng2)["STATES"] for _ in range(500)]
+    for picks in a:
+        assert len(picks) == len(set(picks)) == 3
+        assert set(picks) <= set(states)
+    assert {s for picks in a for s in picks} == set(states)
+    assert len({tuple(p) for p in a}) > 100
+    assert t.render({"STATES": ["CA", "O'K", "AL"]}) == \
+        "select 1 where s in ('CA', 'O''K', 'AL')"

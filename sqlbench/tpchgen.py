@@ -436,6 +436,10 @@ def _gen_lineitem(s, sf, rows, cols):
             "l_comment": lambda: _comment(s, g, "l.comment", 6)}
 
 
+#: the load order
+TABLES = ("region", "nation", "supplier", "customer", "part", "partsupp",
+          "orders", "lineitem")
+
 _GENERATORS = {"region": _gen_region, "nation": _gen_nation,
                "supplier": _gen_supplier, "customer": _gen_customer,
                "part": _gen_part, "partsupp": _gen_partsupp,
@@ -488,3 +492,16 @@ def split_pages(n: int, desired_splits: int,
         for a in range(lo, hi, page_rows):
             out.append((a, min(a + page_rows, hi)))
     return out
+
+
+def page_bounds(table: str, sf: float, seed: int, desired_splits: int,
+                page_rows: int) -> List[Tuple[int, int]]:
+    """(first row, end row) of each page of ``table``: ``split_pages``
+    over its source rows, a lineitem page holding the lines of its
+    orders."""
+    bounds = split_pages(source_rows(table, sf), desired_splits, page_rows)
+    if table == "lineitem":
+        ends = np.concatenate(
+            [[0], np.cumsum(line_counts(sf, seed))])
+        bounds = [(int(ends[a]), int(ends[b])) for a, b in bounds]
+    return bounds

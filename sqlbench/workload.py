@@ -2,11 +2,14 @@
 a traffic mix sends.
 
 A template is ``queries/<q>.sql`` with ``{NAME}`` placeholders and
-``queries/<q>.json``, which gives each placeholder's TPC-H qgen range
-(TPC-H v3.0.1 clause 2.4). A traffic mix is ``traffic/<name>.json``: the
-streams, their templates, the client's poll interval, the warm-up and
-the traced part of the window. Everything is drawn from the seed: the
-same seed gives the same statements in the same order.
+``queries/<q>.json``, which gives each placeholder's qgen range (TPC-H
+v3.0.1 clause 2.4; a ``list`` kind draws ``k`` distinct values, as
+dsqgen's ``ulist`` does for TPC-DS, and renders them as literals for
+``IN ({NAME})``; the reference receives them as a list). A traffic mix
+is ``traffic/<name>.json``: the streams, their templates, the client's
+poll interval, the warm-up and the traced part of the window. Everything
+is drawn from the seed: the same seed gives the same statements in the
+same order.
 """
 
 from __future__ import annotations
@@ -54,13 +57,26 @@ class Template:
                 hi = round(float(spec["hi"]) * step)
                 v = int(rng.integers(lo, hi + 1))
                 out[name] = f"{v // step}.{v % step:0{spec['scale']}d}"
+            elif kind == "list":
+                picks = rng.choice(len(spec["values"]), size=spec["k"],
+                                   replace=False)
+                out[name] = [spec["values"][int(i)] for i in picks]
             else:
                 raise ValueError(f"template {self.name}: parameter "
                                  f"{name} has unknown kind {kind!r}")
         return out
 
     def render(self, params: Dict[str, object]) -> str:
-        return self.sql.format(**params)
+        return self.sql.format(**{
+            k: ", ".join(_literal(x) for x in v) if isinstance(v, list)
+            else v for k, v in params.items()})
+
+
+def _literal(value) -> str:
+    """A value of a ``list`` draw as a SQL literal."""
+    if isinstance(value, str):
+        return "'" + value.replace("'", "''") + "'"
+    return str(value)
 
 
 def load_template(name: str, root: str = HERE) -> Template:
